@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, each a hard failure (non-zero exit) when it does not hold:
 
-1. the card's name and power limit; build both CUDA kernels from
+1. the card's name and power limit; build the CUDA kernels from
    `feature_point_cnn_tpu_torch/csrc/` (one nvcc each, in parallel);
 2. decode: the kernel against its plain version on logits of the released
    weights at 480x640, B = 8 (max |diff| <= 1e-6, mask flips only where
@@ -20,7 +21,23 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 5. timing: extract and frame ms/frame at B = 1 and 32, extract with the
    decode kernel on and off, a traced window of frame calls (device busy
    share, time by kernel), and each kernel against its plain version and
-   its bound.
+   its bound;
+6. descriptor loss: the forward and backward kernels against the plain
+   version (float32, TF32 off) at three small shapes, on all-zero
+   descriptors, and at (32, 30, 40, 128) on descriptors of the released
+   weights for a batch of scenes and their warps.  Tolerances: value rtol
+   2e-5; gradients rtol 2e-4 + atol 2e-6 (at full width the atol is 2e-6 of
+   the largest gradient entry, since the raw sum's gradients reach ~100);
+7. training: 20 joint `superpoint_train_step`s through `Trainer` at 240x320,
+   batch 32, bf16, fresh seeded parameters, on scenes drawn with numpy: the
+   forward and the backward wrapper each launched its kernels once a step
+   (a wrapper call is several CUDA launches, counted in the traced window of
+   the last phase), everything finite, all heads and the
+   running statistics moved, the loss fell; one MagicPoint step leaves the
+   descriptor head alone; a joint step with the kernel gate off gives the
+   same loss (rtol 1e-4);
+8. training timing: ms/step with the gate on and off, its parts, a traced
+   window of 3 steps, peak memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's line again, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 and
@@ -30,9 +47,12 @@ prints no result.  It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,16 +60,21 @@ import torch
 
 H, W = 480, 640
 SHIFT = 16           # px; a multiple of the 8-px cell keeps detections equivariant
+TRAIN_STEPS = 20     # joint steps of phase 7: 4 epochs of 160 scenes at batch 32
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 
 
 def polygon_scene(rng: np.random.Generator, h: int, w: int,
-                  n_polygons: int = 40) -> np.ndarray:
+                  n_polygons: int = 40, return_points: bool = False):
     """A ``(h, w)`` float32 image in [0, 1]: a shaded background with
-    random filled polygons (3-7 vertices) of random grey levels."""
+    random filled polygons (3-7 vertices) of random grey levels.  With
+    ``return_points`` also the ``(N, 2)`` ``(y, x)`` corner points: the
+    polygons' vertices that lie in the image and that no later polygon
+    covers."""
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     img = 0.3 + 0.2 * (xx / w) * rng.random() + 0.2 * (yy / h) * rng.random()
+    corners = np.zeros((0, 2), np.float32)
     for _ in range(n_polygons):
         n = int(rng.integers(3, 8))
         cy, cx = rng.random() * h, rng.random() * w
@@ -69,7 +94,34 @@ def polygon_scene(rng: np.random.Generator, h: int, w: int,
             xcross = ax + (py - ay) * (bx - ax) / (by - ay + 1e-12)
             inside ^= crosses & (px < xcross)
         img[y0:y1, x0:x1][inside] = rng.random()
-    return np.clip(img, 0.0, 1.0).astype(np.float32)
+        if return_points:
+            cy_, cx_ = corners[:, 0].astype(int), corners[:, 1].astype(int)
+            inbox = (cy_ >= y0) & (cy_ < y1) & (cx_ >= x0) & (cx_ < x1)
+            covered = np.zeros(len(corners), bool)
+            covered[inbox] = inside[cy_[inbox] - y0, cx_[inbox] - x0]
+            new = np.stack([vy, vx], -1).astype(np.float32)
+            new = new[(vy >= 0) & (vy <= h - 1) & (vx >= 0) & (vx <= w - 1)]
+            corners = np.concatenate([corners[~covered], new])
+    img = np.clip(img, 0.0, 1.0).astype(np.float32)
+    return (img, corners) if return_points else img
+
+
+class SceneDataset:
+    """An in-memory dataset of polygon scenes for `BatchLoader`:
+    ``read(i) -> (image (h, w, 3) float32, points (N, 2) (y, x))``."""
+
+    def __init__(self, seed: int, size: int, h: int, w: int):
+        rng = np.random.default_rng(seed)
+        self.items = []
+        for _ in range(size):
+            img, pts = polygon_scene(rng, h, w, n_polygons=20, return_points=True)
+            self.items.append((np.repeat(img[..., None], 3, axis=-1), pts))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def read(self, index: int):
+        return self.items[index]
 
 
 def shifted_pair(seed: int, h: int, w: int, shift: int):
@@ -120,16 +172,20 @@ def host_median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def prof_frame(fe, images, key_desc, key_num, card: str, calls: int = 5) -> None:
+def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
+                card: str) -> None:
+    """Trace ``calls`` runs of ``fn()`` after 3 untraced ones: the device's
+    busy share of the wall time and the time by kernel, per ``unit`` (a call
+    holds ``per_call`` of them)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        fe.frame(images, key_desc, key_num)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            fe.frame(images, key_desc, key_num)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(
@@ -138,12 +194,24 @@ def prof_frame(fe, images, key_desc, key_num, card: str, calls: int = 5) -> None
         key=lambda e: -e.self_device_time_total,
     )
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    b = images.shape[0]
-    print(f"profile b{b}: {calls} traced frame calls, wall {wall_ms:.3f} ms, "
+    print(f"profile {what}: {calls} traced calls, wall {wall_ms:.3f} ms, "
           f"device {dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.3f} [{card}]")
     for e in kernels[:12]:
-        print(f"  {e.self_device_time_total / 1e3 / calls / b:9.5f} ms/frame "
+        print(f"  {e.self_device_time_total / 1e3 / calls / per_call:9.5f} ms/{unit} "
               f"x{e.count // calls:<4d} {e.key[:90]}")
+
+
+def traced_launches(fn, kernel_names) -> int:
+    """CUDA launches of the named kernels in one traced run of ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(k in e.key for k in kernel_names))
 
 
 def nms_inputs(decoded: torch.Tensor, seed: int):
@@ -176,7 +244,12 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
-    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
+    from feature_point_cnn_tpu_torch.data.datasets import BatchLoader
+    from feature_point_cnn_tpu_torch.geometry.homography import (
+        homographic_augmentation_batch,
+        warp_points,
+    )
     from feature_point_cnn_tpu_torch.inference.wrapper import (
         SuperPointFrontend,
         extract_fn,
@@ -187,10 +260,18 @@ def main(argv=None) -> int:
         decode_threshold_cuda,
         decode_threshold_plain,
     )
+    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
+        hinge_descriptor_loss_cuda,
+        hinge_descriptor_loss_plain,
+    )
     from feature_point_cnn_tpu_torch.ops.kernels.nms import (
         grid_nms_cuda,
         grid_nms_plain,
     )
+    from feature_point_cnn_tpu_torch.train import loss as L
+    from feature_point_cnn_tpu_torch.train import steps as S
+    from feature_point_cnn_tpu_torch.train.optimizer import make_optimizer
+    from feature_point_cnn_tpu_torch.train.trainer import Trainer
     from feature_point_cnn_tpu_torch.utils.weights import released_path
 
     card = card_line()
@@ -321,7 +402,209 @@ def main(argv=None) -> int:
     # calls (tracing adds host time, so the busy share is a lower bound)
     for b in (1, 32):
         imgs_u8 = torch.from_numpy(np.resize(scenes, (b, H, W, 1))).cuda()
-        prof_frame(fe, imgs_u8, k_desc[0], k_num[0], card)
+        prof_window(lambda: fe.frame(imgs_u8, k_desc[0], k_num[0]), 5, b,
+                    f"b{b} frame", "frame", card)
+
+
+    # ---- 6. descriptor loss: kernels against the plain version ----------
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = SuperPointConfig(lr_schedule="constant")
+    th, tw = tcfg.train_image_size
+    tb = tcfg.batch_size
+    hinge = (tcfg.lambda_d, tcfg.positive_margin, tcfg.negative_margin, tcfg.cell)
+
+    def value_and_grads(fn, d, wd, *rest):
+        d = d.detach().clone().requires_grad_(True)
+        wd = wd.detach().clone().requires_grad_(True)
+        v = fn(d, wd, *rest)
+        v.backward()
+        return v.detach(), d.grad, wd.grad
+
+    rng6 = np.random.default_rng(args.seed + 6)
+    homog6 = torch.tensor([1.02, 0.01, 3.0, -0.02, 0.98, -2.0, 1e-4, -1e-4],
+                          device="cuda")
+    for shape in ((2, 6, 8, 32), (1, 8, 16, 16), (2, 10, 14, 8), (1, 4, 4, 8)):
+        b6, hc6, wc6, _ = shape
+        zero = shape == (1, 4, 4, 8)       # the zero-row hazard of the rsqrt form
+        desc = torch.from_numpy(rng6.standard_normal((2, *shape)).astype(np.float32)).cuda()
+        if zero:
+            desc.zero_()
+        mask6 = torch.from_numpy(rng6.random((b6, hc6, wc6)) > 0.15).cuda().float()
+        got = value_and_grads(
+            lambda d, wd: L.descriptor_loss(d, wd, homog6.expand(b6, 8), mask6,
+                                            tcfg.replace(use_cuda_desc_loss="on")),
+            desc[0], desc[1])
+        want = value_and_grads(
+            lambda d, wd: L.descriptor_loss(d, wd, homog6.expand(b6, 8), mask6,
+                                            tcfg.replace(use_cuda_desc_loss="off")),
+            desc[0], desc[1])
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"finite at {shape}")
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0.0)
+        for g, w_ in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w_, rtol=2e-4, atol=2e-6)
+        print(f"desc loss {shape}{' zero descriptors' if zero else ''}: value "
+              f"{float(got[0]):.6f} vs plain {float(want[0]):.6f}, grad max|diff| "
+              f"{max(float((g - w_).abs().max()) for g, w_ in zip(got[1:], want[1:])):.3g}")
+
+    # full width: descriptors of the released weights for scenes and warps
+    scenes_t = SceneDataset(args.seed + 60, tb, th, tw)
+    imgs_t = torch.from_numpy(np.stack([s_[0] for s_ in scenes_t.items])).cuda()
+    gen6 = torch.Generator(device="cuda").manual_seed(args.seed + 6)
+    no_pts = torch.zeros((tb, 1, 2), device="cuda")
+    warped_t, _, _, _, homog_t = homographic_augmentation_batch(
+        gen6, imgs_t, no_pts, torch.zeros((tb, 1), dtype=torch.bool, device="cuda"),
+        HomographyConfig())
+    with torch.no_grad():
+        desc2 = fe.model.features(torch.cat([imgs_t, warped_t]))[1]
+    hc_t, wc_t = tcfg.grid_size(th, tw)
+    n_t, dim_t = hc_t * wc_t, tcfg.descriptor_dim
+    d_t = L._l2_normalize(desc2[:tb].reshape(tb, n_t, dim_t), -1).clone()
+    wd_t = L._l2_normalize(desc2[tb:].reshape(tb, n_t, dim_t), -1).clone()
+    centers_t = L._cell_centers(hc_t, wc_t, tcfg.cell, "cuda")
+    wcent_t = warp_points(centers_t, homog_t)
+    mask_t = (torch.rand((tb, n_t), generator=gen6, device="cuda") > 0.15).float()
+    full_args = (wcent_t, centers_t, mask_t, *hinge)
+    got = value_and_grads(hinge_descriptor_loss_cuda, d_t, wd_t, *full_args)
+    want = value_and_grads(hinge_descriptor_loss_plain, d_t, wd_t, *full_args)
+    again = value_and_grads(hinge_descriptor_loss_cuda, d_t, wd_t, *full_args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          "descriptor-loss kernels repeat bit for bit")
+    dl_fwd_err = float((got[0] - want[0]).abs())
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0.0)
+    gmax = max(float(w_.abs().max()) for w_ in want[1:])
+    dl_bwd_err = max(float((g - w_).abs().max()) for g, w_ in zip(got[1:], want[1:]))
+    for g, w_ in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w_, rtol=2e-4, atol=2e-6 * gmax)
+    print(f"desc loss full width {(tb, hc_t, wc_t, dim_t)}: mask zeros "
+          f"{1 - float(mask_t.mean()):.3f}, correspondences "
+          f"{float(((wcent_t[:, :, None] - centers_t[None, None]).square().sum(-1) < 56.25).sum()) / tb:.0f}"
+          f"/item, value {float(got[0]):.4f} vs plain {float(want[0]):.4f} "
+          f"(|diff| {dl_fwd_err:.3g}), grad max|diff| {dl_bwd_err:.3g} of max|grad| {gmax:.3g}")
+    del got, want, again
+
+    # ---- 7. the training path at full width -----------------------------
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    dataset = SceneDataset(args.seed + 70, tb * 5, th, tw)
+    loader = BatchLoader(dataset, tb, tcfg.max_points, seed=args.seed)
+    print(f"train data: {len(dataset)} scenes {th}x{tw}, "
+          f"{np.mean([len(p_) for _, p_ in dataset.items]):.1f} corner points a "
+          f"scene, made in {time.perf_counter() - t0:.2f} s")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(kernels.BUILD_DIR))
+    trainer = Trainer(tcfg, "superpoint", loader, None, ckpt_dir, seed=args.seed,
+                      device="cuda", log_every=1)
+    model_t = trainer.state.model
+    before = {k: v.detach().clone() for k, v in model_t.state_dict().items()}
+    hinge_descriptor_loss_cuda.launches_fwd = 0
+    hinge_descriptor_loss_cuda.launches_bwd = 0
+    epochs = [trainer.train_epoch(e) for e in range(TRAIN_STEPS // len(loader))]
+    torch.cuda.synchronize()
+    dl_launches = {"descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
+                   "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
+    shutil.rmtree(ckpt_dir)
+    print(f"training path launches: {dl_launches} in {trainer.state.step} steps")
+    check(trainer.state.step == TRAIN_STEPS, f"{TRAIN_STEPS} steps taken")
+    check(all(v == TRAIN_STEPS for v in dl_launches.values()),
+          "the forward and backward wrappers launched once a step")
+    for e, m in enumerate(epochs):
+        print(f"  epoch {e} (mean of {len(loader)} steps): " +
+              " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics, epoch {e}")
+    check(int(trainer.state.optimizer.count) == TRAIN_STEPS, "no step was skipped")
+    check(epochs[-1]["loss"] < epochs[0]["loss"],
+          "mean loss of the last 5 steps below that of the first 5")
+    after = model_t.state_dict()
+    for head in ("encoder", "detector", "descriptor"):
+        moved = [k for k in after if k.startswith(head) and k.endswith("weight")
+                 and not torch.equal(after[k], before[k])]
+        check(len(moved) > 0, f"{head} parameters moved")
+    check(all(not torch.equal(after[k], before[k]) for k in after
+              if k.endswith("running_var")), "running statistics moved")
+
+    def fresh_state(frozen=None, config=tcfg):
+        """A TrainState on a copy of the trained model, with a new optimizer."""
+        m = copy.deepcopy(model_t)
+        return S.create_train_state(
+            m, make_optimizer(config, m.named_parameters(), frozen_subtree=frozen))
+
+    batch_t = trainer._to_device(next(loader.epoch(0)))
+    gen7 = torch.Generator(device="cuda")
+    mp_state = fresh_state("descriptor")
+    mp_before = {k: v.detach().clone() for k, v in mp_state.model.state_dict().items()}
+    _, mp_metrics = S.magicpoint_train_step(
+        mp_state, batch_t, gen7.manual_seed(args.seed), config=tcfg)
+    mp_after = mp_state.model.state_dict()
+    check(all(torch.equal(mp_after[k], mp_before[k]) for k in mp_after
+              if k.startswith("descriptor")), "MagicPoint step leaves the descriptor head")
+    check(not torch.equal(mp_after["detector.layer.0.conv1.weight"],
+                          mp_before["detector.layer.0.conv1.weight"]),
+          "MagicPoint step moves the detector")
+    check(bool(torch.isfinite(mp_metrics["loss"])), "finite MagicPoint loss")
+    print(f"magicpoint step: loss {float(mp_metrics['loss']):.4f} "
+          f"f1 {float(mp_metrics['f1']):.4f}; descriptor head unchanged")
+    del mp_state
+
+    gate_loss = {}
+    for gate in ("on", "off"):
+        gcfg = tcfg.replace(use_cuda_desc_loss=gate)
+        _, gm = S.superpoint_train_step(
+            fresh_state(config=gcfg), batch_t, gen7.manual_seed(args.seed + 1),
+            config=gcfg)
+        gate_loss[gate] = float(gm["loss"])
+    print(f"gate on vs off: total loss {gate_loss['on']:.6f} vs {gate_loss['off']:.6f}")
+    check(abs(gate_loss["on"] - gate_loss["off"]) <= 1e-4 * abs(gate_loss["off"]),
+          "gate off gives the same loss to rtol 1e-4")
+
+    # ---- 8. training timing ----------------------------------------------
+    step_ms, peak_mb = {"on": [], "off": []}, {}
+    for gate in ("on", "off", "off", "on"):
+        gcfg = tcfg.replace(use_cuda_desc_loss=gate)
+        st = fresh_state(config=gcfg)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[gate].append(host_median_ms(
+            lambda: S.superpoint_train_step(st, batch_t, gen7, config=gcfg),
+            runs=10))
+        peak_mb[gate] = torch.cuda.max_memory_allocated() / 2**20
+        del st
+    for gate in ("on", "off"):
+        ms = float(np.mean(step_ms[gate]))
+        print(f"train step b{tb} gate {gate}: {step_ms[gate]} ms/step "
+              f"({1e3 * tb / ms:.1f} images/s), peak memory {peak_mb[gate]:.0f} MiB "
+              f"[{card}]")
+
+    st = fresh_state()
+    parts = {k: [] for k in ("augment", "forward", "loss", "backward", "update")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    for it in range(8):
+        warped, labels, wlabels, cmask, homog, images = timed(
+            "augment", lambda: S._augment_and_encode(batch_t, gen7, tcfg, HomographyConfig()))
+        st.model.train().zero_grad(set_to_none=True)
+        logits2, descs2 = timed(
+            "forward", lambda: st.model.features(torch.cat([images, warped])))
+        losses = timed("loss", lambda: L.global_loss(
+            logits2[:tb], labels, logits2[tb:], wlabels, descs2[:tb], descs2[tb:],
+            homog, cmask, tcfg))
+        timed("backward", losses["total"].backward)
+        timed("update", st.optimizer.step)
+    med = {k: float(np.median(v[3:])) for k, v in parts.items()}
+    total = sum(med.values())
+    print(f"train step parts (each ended by a synchronise, median of 5): " +
+          ", ".join(f"{k} {v:.3f} ms ({v / total:.2f})" for k, v in med.items()) +
+          f"; sum {total:.3f} ms [{card}]")
+    prof_window(lambda: S.superpoint_train_step(st, batch_t, gen7, config=tcfg),
+                3, 1, f"b{tb} train step", "step", card)
+    del st
 
     ncell, npix = logits.shape[0] * logits.shape[1] * logits.shape[2], dec_k.numel()
     dec_bytes = logits.numel() * 4 + npix * 4
@@ -350,6 +633,51 @@ def main(argv=None) -> int:
              library_ms=None, shape=list(dec_k.shape),
              rounds=nms_rounds["decode_output"]),
     ]
+    prod = 2.0 * tb * n_t * n_t * dim_t         # one N x N x D product
+    dl_in = 4 * (2 * d_t.numel() + wcent_t.numel() + centers_t.numel() + mask_t.numel())
+    fwd_bytes = dl_in + 4 * (2 * tb * n_t + 1)  # + rr, c and the loss out
+    bwd_bytes = dl_in + 4 * (2 * tb * n_t + 1) + 4 * 2 * d_t.numel()
+    d_req = d_t.detach().clone().requires_grad_(True)
+    wd_req = wd_t.detach().clone().requires_grad_(True)
+    v_k = hinge_descriptor_loss_cuda(d_req, wd_req, *full_args)
+    v_p = hinge_descriptor_loss_plain(d_req, wd_req, *full_args)
+    dl_ms = {
+        "k_fwd": event_ms(lambda: hinge_descriptor_loss_cuda(d_req, wd_req, *full_args), 20),
+        "p_fwd": event_ms(lambda: hinge_descriptor_loss_plain(d_req, wd_req, *full_args), 20),
+        "k_bwd": event_ms(lambda: torch.autograd.grad(v_k, (d_req, wd_req), retain_graph=True), 20),
+        "p_bwd": event_ms(lambda: torch.autograd.grad(v_p, (d_req, wd_req), retain_graph=True), 20),
+    }
+    dl_cuda_launches = {
+        "fwd": traced_launches(
+            lambda: hinge_descriptor_loss_cuda(d_req, wd_req, *full_args),
+            ("sweep_kernel", "sum_kernel")),
+        "bwd": traced_launches(
+            lambda: torch.autograd.grad(v_k, (d_req, wd_req), retain_graph=True),
+            ("sweep_kernel", "sum_kernel")),
+    }
+    check(all(v > 0 for v in dl_cuda_launches.values()),
+          "the traced wrapper calls show the kernels' launches")
+    # The bound counts the products the function needs, as the TPU kernel
+    # computes it: 2 forward (a for the row sums, a again for the hinge), 4
+    # backward (2 rebuilt, 2 gradient products).  The port's sweeps run 3
+    # and 6; the extra ones are the design's cost, not part of the bound.
+    for name, n_prod, nbytes, err in (("fwd", 2, fwd_bytes, dl_fwd_err),
+                                      ("bwd", 4, bwd_bytes, dl_bwd_err)):
+        t_ops, t_bytes = n_prod * prod / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        rows.append(dict(
+            name=f"descriptor_loss_{name}", route="cuda",
+            source="feature_point_cnn_tpu_torch/csrc/descriptor_loss.cu",
+            replaces="feature_point_cnn_tpu/ops/pallas/descriptor_loss.py:"
+                     + ("189" if name == "fwd" else "219"),
+            launches=dl_launches[f"descriptor_loss_{name}"], max_abs_err=err,
+            ms=dl_ms[f"k_{name}"], plain_ms=dl_ms[f"p_{name}"],
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, shape=[tb, n_t, dim_t],
+            wrapper_calls_per_step=dl_launches[f"descriptor_loss_{name}"]
+            / trainer.state.step,
+            cuda_launches_per_call=dl_cuda_launches[name],
+            plain_fwd_bwd_ms=dl_ms["p_fwd"] + dl_ms["p_bwd"]))
     for r in rows:
         print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms vs plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

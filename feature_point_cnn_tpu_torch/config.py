@@ -1,12 +1,13 @@
-"""Serving configuration of the port.
+"""Configuration of the port, shared by serving and training.
 
-A copy of the decode, model and numerics fields of the JAX package's
-``SuperPointConfig`` (`feature_point_cnn_tpu/config.py:27-89,171`), with the
-same defaults, so one operating point means the same thing on both sides.
-The training fields belong to a later slice.  Left out on purpose:
-``stem_s2d`` (a TPU-only reparametrisation of the stem conv), ``fold_bn``
-(its folding module is not ported yet) and ``grid_channels`` (always 65:
-the 64 cell positions and the dustbin).
+A copy of the JAX package's ``SuperPointConfig`` and ``HomographyConfig``
+(`feature_point_cnn_tpu/config.py:27-180,202-239`) with the same defaults,
+so one operating point means the same thing on both sides.  Left out on
+purpose: ``stem_s2d`` (a TPU-only reparametrisation of the stem conv),
+``fold_bn`` (its folding module is not ported yet), ``grid_channels``
+(always 65: the 64 cell positions and the dustbin), ``train_steps_per_call``
+(the scanned multi-step dispatch) and ``data_axis`` (the device mesh): the
+last two belong to slices that are not ported yet.
 
 The kernel gates take ``"auto"`` (the CUDA kernel for CUDA tensors, the
 plain PyTorch version otherwise), ``"on"`` or ``"off"``.  Unlike the JAX
@@ -17,6 +18,7 @@ over to the H100.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 
@@ -37,6 +39,9 @@ class SuperPointConfig:
                                       # (ops/kernels/decode.py)
     use_cuda_nms: str = "auto"        # exact-greedy NMS kernel
                                       # (ops/kernels/nms.py)
+    use_cuda_desc_loss: str = "auto"  # hinge descriptor loss kernels, forward
+                                      # and backward, no (B, N, N) in device
+                                      # memory (ops/kernels/descriptor_loss.py)
 
     # --- model topology ---
     image_channels: int = 3
@@ -46,8 +51,51 @@ class SuperPointConfig:
     # parameters and BatchNorm statistics; "float32" is the parity path ---
     compute_dtype: str = "bfloat16"
 
+    # --- loss ---
+    lambda_d: float = 250.0
+    positive_margin: float = 1.0
+    negative_margin: float = 0.2
+    detector_loss: str = "ce"         # "ce" | "distance" (soft-argmax position;
+                                      # cell confidences collapse below the
+                                      # operating threshold: prefer "ce")
+    descriptor_loss: str = "hinge"    # "hinge" | "mse" | "hinge_hn" (hard-
+                                      # negative-mined hinge on plain cosine
+                                      # similarity)
+    desc_hn_topk: int = 8             # hinge_hn: hardest negatives mined per
+                                      # cell (each direction)
+    lambda_hn: float = 1.0            # hinge_hn: descriptor-vs-detector weight
+
+    # --- training ---
+    train_image_size: Tuple[int, int] = (240, 320)
+    batch_size: int = 32
+    grad_accum_steps: int = 1         # accumulate k FULL-size batches into one
+                                      # update (k x effective batch)
+    learning_rate: float = 1.0e-3
+    lr_schedule: str = "warmup_cosine"  # "constant" | "warmup_cosine"
+    warmup_steps: int = 200           # linear warmup from 0
+    lr_final_ratio: float = 0.05      # cosine floor as a fraction of peak
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1.0e-8
+    weight_decay: float = 0.01
+    grad_clip_norm: float = 5.0       # global-norm clip; 0 disables
+    epochs: int = 100
+    microbatch_steps: int = 1         # split each batch into k sequential
+                                      # microbatches inside the step (gradients
+                                      # averaged, BatchNorm statistics threaded):
+                                      # same effective batch, ~k-fold less
+                                      # activation memory
+    eval_max_items: int = 1000        # cap on per-epoch eval items of the
+                                      # SuperPoint phase; 0 = the full split
+
+    # --- data pipeline ---
+    max_points: int = 512             # fixed-size padded ground-truth point sets
+    shuffle_seed: int = 0
+    prefetch_batches: int = 2
+    photometric_augment: bool = False # on-device photometric augmentation
+
     def __post_init__(self):
-        for gate in ("use_cuda_decode", "use_cuda_nms"):
+        for gate in ("use_cuda_decode", "use_cuda_nms", "use_cuda_desc_loss"):
             if getattr(self, gate) not in ("auto", "on", "off"):
                 raise ValueError(f"{gate} must be 'auto', 'on' or 'off'")
         if self.compute_dtype not in ("bfloat16", "float32"):
@@ -62,4 +110,41 @@ class SuperPointConfig:
         return img_h // self.cell, img_w // self.cell
 
     def replace(self, **kw) -> "SuperPointConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class HomographyConfig:
+    """Random homography family for augmentation / adaptation
+    (`feature_point_cnn_tpu/config.py:202-239`); ``for_preprocess()`` is the
+    looser self-labeling variant."""
+
+    num: int = 15                     # warps per image in adaptation
+    perspective: bool = True
+    scaling: bool = True
+    rotation: bool = True
+    translation: bool = True
+    n_scales: int = 5
+    n_angles: int = 25
+    scaling_amplitude: float = 0.1
+    perspective_amplitude_x: float = 0.1
+    perspective_amplitude_y: float = 0.1
+    patch_ratio: float = 0.5
+    max_angle: float = math.pi / 2
+    allow_artifacts: bool = False
+    translation_overflow: float = 0.0
+    valid_border_margin: int = 8
+    aggregation: str = "sum"          # "sum" (mean) | "max"
+
+    @classmethod
+    def for_preprocess(cls) -> "HomographyConfig":
+        return cls(
+            scaling_amplitude=0.2,
+            perspective_amplitude_x=0.2,
+            perspective_amplitude_y=0.2,
+            allow_artifacts=True,
+            patch_ratio=0.85,
+        )
+
+    def replace(self, **kw) -> "HomographyConfig":
         return dataclasses.replace(self, **kw)

@@ -6,10 +6,13 @@ the JAX package's layouts: image ``(B, H, W, 3)`` in [0, 1] in, and
 ``prob (B, H, W)``, ``desc (B, Hc, Wc, D)``, ``logits (B, Hc, Wc, 65)``, all
 float32, out.
 
-``compute_dtype="bfloat16"`` stores the convolution weights in bf16 and
-feeds them bf16 activations; BatchNorm keeps float32 parameters and
-statistics (PyTorch's mixed-type BatchNorm computes in float32 and returns
-bf16), as Flax promotes its BatchNorm to float32 on the JAX side.
+``compute_dtype="bfloat16"`` feeds the convolutions bf16 activations and
+bf16 weights; BatchNorm keeps float32 parameters and statistics (PyTorch's
+mixed-type BatchNorm computes in float32 and returns bf16), as Flax
+promotes its BatchNorm to float32 on the JAX side.  A serving model stores
+the convolution weights in bf16; a training model (``float32_params=True``)
+keeps float32 master parameters and casts them at each forward, as the JAX
+step does (`train/steps.py:15`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ import torch
 from torch import nn
 
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
-from feature_point_cnn_tpu_torch.models.blocks import resnet_layer
+from feature_point_cnn_tpu_torch.models.blocks import (
+    BatchNorm2d,
+    Conv2d,
+    ConvTranspose2d,
+    resnet_layer,
+)
 from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -32,8 +40,8 @@ class Encoder(nn.Module):
 
     def __init__(self, cin: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.conv1 = Conv2d(cin, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(64)
         self.layer1 = resnet_layer(2, 64, 64, 1)
         self.layer2 = resnet_layer(2, 64, 128, 2)
 
@@ -62,10 +70,10 @@ class Descriptor(nn.Module):
     def __init__(self, descriptor_dim: int):
         super().__init__()
         self.layer_in = resnet_layer(2, 128, 256, 2)
-        self.up_sample = nn.ConvTranspose2d(
+        self.up_sample = ConvTranspose2d(
             256, 128, 3, stride=2, padding=1, output_padding=1
         )
-        self.bn = nn.BatchNorm2d(128, eps=1e-5)
+        self.bn = BatchNorm2d(128)
         self.layer_out = resnet_layer(2, 256, descriptor_dim, 1)
 
     def forward(self, x: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
@@ -79,7 +87,8 @@ class Descriptor(nn.Module):
 
 class SuperPoint(nn.Module):
     def __init__(self, config: SuperPointConfig = SuperPointConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 float32_params: bool = False):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config.image_channels)
@@ -87,7 +96,7 @@ class SuperPoint(nn.Module):
         self.descriptor = Descriptor(config.descriptor_dim)
         self.reset_parameters(generator)
         self.compute_dtype = _DTYPES[config.compute_dtype]
-        if self.compute_dtype != torch.float32:
+        if self.compute_dtype != torch.float32 and not float32_params:
             for m in self.modules():
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                     m.to(self.compute_dtype)

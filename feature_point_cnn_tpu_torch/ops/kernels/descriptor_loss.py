@@ -1,0 +1,168 @@
+"""Hinge descriptor loss over all cell pairs: the CUDA kernels' wrapper (a
+`torch.autograd.Function`, forward and backward) and its plain version.
+
+Kernels: `feature_point_cnn_tpu_torch/csrc/descriptor_loss.cu`, which
+replaces the TPU kernel `feature_point_cnn_tpu/ops/pallas/
+descriptor_loss.py:hinge_descriptor_loss_pallas` (forward `_fwd_kernel`,
+backward `_bwd_kernel`).  They are bound by operations: the function needs
+the N x N x D product (2 N^2 D flop) twice forward and four times backward,
+against four ``(B, N, D)`` arrays of traffic; this design's sweeps run it
+three and six times, which the bound does not count.  No ``(B, N, N)`` array
+reaches device memory; only the ``(B, N)`` vectors ``rr`` and ``c`` are
+saved for the backward (the source note has the design).
+
+Plain version: the materialised ``(B, N, N)`` PyTorch computation under
+ordinary autograd (`feature_point_cnn_tpu/train/loss.py:165-182` without the
+final division).  The wrapper takes it only for CPU tensors; for CUDA
+tensors it launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from feature_point_cnn_tpu_torch.ops.kernels import (
+    check_launch,
+    load_library,
+    stream_of,
+)
+
+_EPS = 1e-12      # matches train/loss.py:_l2_normalize
+_TILE = 64        # kT of the source: rows a block owns
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "descriptor_loss_max_dim": (_I, ()),
+    "descriptor_loss_fwd_launch": (
+        _I, (_P,) * 9 + (_I,) * 3 + (_F,) * 4 + (_P,)
+    ),
+    "descriptor_loss_bwd_launch": (
+        _I, (_P,) * 12 + (_I,) * 3 + (_F,) * 4 + (_P,)
+    ),
+}
+
+
+def hinge_descriptor_loss_plain(
+    d: torch.Tensor,
+    wd: torch.Tensor,
+    warped_centers: torch.Tensor,
+    centers: torch.Tensor,
+    mask_j: torch.Tensor,
+    lambda_d: float,
+    mp: float,
+    mn: float,
+    cell: int,
+) -> torch.Tensor:
+    """The unnormalised double-normalised hinge sum, materialising the
+    ``(B, N, N)`` tensors; differentiable in ``d`` and ``wd`` by autograd.
+
+    ``d``/``wd``: ``(B, N, D)`` row-normalised descriptors; ``warped_centers``
+    ``(B, N, 2)``: the original cell centers in the warped frame;
+    ``centers`` ``(N, 2)``; ``mask_j`` ``(B, N)`` in {0, 1}.
+    """
+    a = torch.relu(torch.einsum("bid,bjd->bij", d, wd))
+    u = a * torch.rsqrt((a * a).sum(dim=2, keepdim=True) + _EPS)
+    v = u * torch.rsqrt((u * u).sum(dim=1, keepdim=True) + _EPS)
+    diff = warped_centers[:, :, None, :] - centers[None, None, :, :]
+    s = ((diff * diff).sum(-1) < (cell - 0.5) ** 2).to(v.dtype)
+    hinge = lambda_d * s * torch.relu(mp - v) + (1.0 - s) * torch.relu(v - mn)
+    return (hinge * mask_j[:, None, :]).sum()
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: want float32 {shape} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+    return t.contiguous()
+
+
+class _HingeDescriptorLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, wd, warped_centers, centers, mask_j, lambda_d, mp, mn,
+                cell):
+        if d.dim() != 3:
+            raise ValueError(f"d: want (B, N, D), got {tuple(d.shape)}")
+        b, n, dim = d.shape
+        dev = d.device
+        d = _check("d", d, (b, n, dim), dev)
+        wd = _check("wd", wd, (b, n, dim), dev)
+        wc = _check("warped_centers", warped_centers, (b, n, 2), dev)
+        ct = _check("centers", centers, (n, 2), dev)
+        mj = _check("mask_j", mask_j, (b, n), dev)
+        lib = load_library("descriptor_loss", _SIGNATURES)
+        if b == 0 or n == 0 or not 0 < dim <= lib.descriptor_loss_max_dim():
+            raise ValueError(
+                f"the descriptor-loss kernel takes B, N >= 1 and D <= "
+                f"{lib.descriptor_loss_max_dim()}, got {(b, n, dim)}"
+            )
+        rr = torch.empty((b, n), dtype=torch.float32, device=dev)
+        c = torch.empty_like(rr)
+        partial = torch.empty(b * (-(-n // _TILE)), dtype=torch.float32, device=dev)
+        loss = torch.empty((), dtype=torch.float32, device=dev)
+        params = (float(lambda_d), float(mp), float(mn), float(cell))
+        with torch.cuda.device(dev):
+            err = lib.descriptor_loss_fwd_launch(
+                d.data_ptr(), wd.data_ptr(), wc.data_ptr(), ct.data_ptr(),
+                mj.data_ptr(), rr.data_ptr(), c.data_ptr(), partial.data_ptr(),
+                loss.data_ptr(), b, n, dim, *params, stream_of(d),
+            )
+        check_launch(err, "descriptor_loss_fwd_launch")
+        hinge_descriptor_loss_cuda.launches_fwd += 1
+        ctx.save_for_backward(d, wd, wc, ct, mj, rr, c)
+        ctx.params = params
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        d, wd, wc, ct, mj, rr, c = ctx.saved_tensors
+        b, n, dim = d.shape
+        g = grad_out.to(torch.float32).reshape(1).contiguous()
+        tcol = torch.empty_like(rr)
+        srow = torch.empty_like(rr)
+        dd = torch.empty_like(d)
+        dwd = torch.empty_like(wd)
+        lib = load_library("descriptor_loss", _SIGNATURES)
+        with torch.cuda.device(d.device):
+            err = lib.descriptor_loss_bwd_launch(
+                d.data_ptr(), wd.data_ptr(), wc.data_ptr(), ct.data_ptr(),
+                mj.data_ptr(), rr.data_ptr(), c.data_ptr(), g.data_ptr(),
+                tcol.data_ptr(), srow.data_ptr(), dd.data_ptr(), dwd.data_ptr(),
+                b, n, dim, *ctx.params, stream_of(d),
+            )
+        check_launch(err, "descriptor_loss_bwd_launch")
+        hinge_descriptor_loss_cuda.launches_bwd += 1
+        return dd, dwd, None, None, None, None, None, None, None
+
+
+def hinge_descriptor_loss_cuda(
+    d: torch.Tensor,
+    wd: torch.Tensor,
+    warped_centers: torch.Tensor,
+    centers: torch.Tensor,
+    mask_j: torch.Tensor,
+    lambda_d: float,
+    mp: float,
+    mn: float,
+    cell: int,
+) -> torch.Tensor:
+    """The descriptor-loss kernels on CUDA tensors (forward now, backward
+    when autograd asks), the plain version on CPU tensors.  Arguments and
+    result as :func:`hinge_descriptor_loss_plain`; no gradient flows to the
+    centers or the mask.  ``launches_fwd`` / ``launches_bwd`` count the calls
+    of each direction's launcher; one call is four CUDA launches (forward:
+    three sweeps and the sum of the partial losses; backward: four sweeps)."""
+    if not d.is_cuda:
+        return hinge_descriptor_loss_plain(
+            d, wd, warped_centers, centers, mask_j, lambda_d, mp, mn, cell
+        )
+    return _HingeDescriptorLoss.apply(
+        d, wd, warped_centers.detach(), centers.detach(), mask_j.detach(),
+        lambda_d, mp, mn, cell,
+    )
+
+
+hinge_descriptor_loss_cuda.launches_fwd = 0
+hinge_descriptor_loss_cuda.launches_bwd = 0

@@ -1,0 +1,281 @@
+"""Training and evaluation steps (`feature_point_cnn_tpu/train/steps.py`).
+
+One step holds what the JAX step holds: label encoding and, for the
+SuperPoint phase, homographic augmentation on the device; the two views
+concatenated into ONE forward of ``2B`` images, so train-mode BatchNorm
+statistics pool both; bf16 compute with float32 master parameters and
+losses.
+
+Where the JAX steps are pure functions of a state pytree, these update the
+`TrainState`'s module and optimizer **in place** and return the same state
+object with the metrics.  Metrics are 0-d tensors on the device: nothing
+here reads a value back, so steps queue up asynchronously.  Random draws
+come from the one `torch.Generator` a step is given, in a fixed order.
+
+`superpoint_train_step` is `_augment_and_encode` followed by
+`superpoint_train_step_encoded`, which can be called on given ``(images,
+warped, labels, wlabels, cell_mask, homog)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
+from feature_point_cnn_tpu_torch.data.photometric import photometric_augment_batch
+from feature_point_cnn_tpu_torch.geometry.homography import (
+    homographic_augmentation_batch,
+)
+from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+from feature_point_cnn_tpu_torch.ops.labels import (
+    make_points_labels_batch,
+    scale_valid_map,
+)
+from feature_point_cnn_tpu_torch.train.loss import detector_loss, global_loss
+from feature_point_cnn_tpu_torch.train.optimizer import Optimizer
+from feature_point_cnn_tpu_torch.utils.metrics import samplewise_f1
+
+Batch = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module (float32 parameters, BatchNorm statistics), its optimizer
+    and the number of steps taken."""
+
+    model: SuperPoint
+    optimizer: Optimizer
+    step: int = 0
+
+
+def create_train_state(model: SuperPoint, optimizer: Optimizer) -> TrainState:
+    return TrainState(model=model, optimizer=optimizer, step=0)
+
+
+def _prep_images(images: torch.Tensor, config: SuperPointConfig) -> torch.Tensor:
+    """Normalise a batch to ``(B, H, W, image_channels)`` float32 in [0, 1]:
+    u8 is scaled by 1/255, a single gray channel repeated."""
+    if images.dtype == torch.uint8:
+        images = images.to(torch.float32) / 255.0
+    if images.shape[-1] == 1 and config.image_channels > 1:
+        images = images.expand(*images.shape[:-1], config.image_channels)
+    return images
+
+
+def _grad_norms(model: SuperPoint) -> Dict[str, torch.Tensor]:
+    """Per-head global norms of the gradients now in ``.grad`` (a head
+    without gradients reads 0)."""
+    out = {}
+    for head, module in model.named_children():
+        grads = [p.grad for p in module.parameters() if p.grad is not None]
+        out[f"grad_norm/{head}"] = (
+            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if grads else torch.zeros((), device=next(module.parameters()).device)
+        )
+    return out
+
+
+def _microbatched_backward(
+    micro_loss_fn: Callable[[Batch], Tuple[torch.Tensor, object]],
+    model: SuperPoint, data: Batch, k: int,
+) -> Tuple[torch.Tensor, List[object]]:
+    """Split ``data`` into ``k`` microbatches, STRIDED as on the JAX side
+    (microbatch ``i`` takes items ``i, i+k, i+2k, ...``), run them in order
+    at the same parameters, and leave the gradient of the mean loss in
+    ``.grad``.  BatchNorm statistics thread through the microbatches in
+    order, since each forward updates the module's buffers.  Peak activation
+    memory is that of one microbatch.
+
+    ``micro_loss_fn(micro) -> (loss, aux)``.  Returns ``(mean_loss, [aux of
+    each microbatch])``.
+    """
+    b = next(iter(data.values())).shape[0]
+    if b % k != 0:
+        raise ValueError(
+            f"batch size {b} is not divisible by microbatch_steps={k}"
+        )
+    model.zero_grad(set_to_none=True)
+    total, auxes = None, []
+    for i in range(k):
+        loss, aux = micro_loss_fn({name: v[i::k] for name, v in data.items()})
+        (loss / k).backward()
+        total = loss.detach() if total is None else total + loss.detach()
+        auxes.append(aux)
+    return total / k, auxes
+
+
+def _interleave(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Undo the strided split: microbatch ``i``'s rows go back to ``i::k``.
+    (The JAX step concatenates them in microbatch order instead; its F1
+    metric pairs them with the unsplit labels.)"""
+    k = len(parts)
+    if k == 1:
+        return parts[0]
+    return torch.stack(parts, dim=1).reshape(-1, *parts[0].shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# MagicPoint phase: detector-only on (image, points) batches
+# ---------------------------------------------------------------------------
+
+def magicpoint_train_step(
+    state: TrainState, batch: Batch, gen: torch.Generator, *,
+    config: SuperPointConfig,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """``batch``: ``image (B, H, W, C)`` float or u8, ``points (B, P, 2)``
+    ``(y, x)``, ``points_valid (B, P)`` bool, on the model's device.  The
+    descriptor head is neither run nor updated (build the optimizer with
+    ``frozen_subtree="descriptor"``)."""
+    model = state.model.train()
+    images = _prep_images(batch["image"], config)
+    h, w = images.shape[1:3]
+    if config.photometric_augment:
+        images = photometric_augment_batch(gen, images)
+    labels = make_points_labels_batch(
+        batch["points"], batch["points_valid"], gen, h, w, config.cell
+    )
+
+    def micro_loss(m):
+        logits, _ = model.features(m["images"], enable_descriptor=False)
+        loss = detector_loss(logits, m["labels"], None, config.cell,
+                             config.detector_loss)
+        return loss, logits.detach()
+
+    loss, logits_k = _microbatched_backward(
+        micro_loss, model, {"images": images, "labels": labels},
+        config.microbatch_steps,
+    )
+    metrics = {
+        "loss": loss,
+        "detector_loss": loss,
+        "f1": samplewise_f1(_interleave(logits_k), labels),
+        **_grad_norms(model),
+    }
+    state.optimizer.step()
+    state.step += 1
+    return state, metrics
+
+
+@torch.no_grad()
+def magicpoint_eval_step(
+    state: TrainState, batch: Batch, gen: torch.Generator, *,
+    config: SuperPointConfig,
+) -> Dict[str, torch.Tensor]:
+    model = state.model.eval()
+    images = _prep_images(batch["image"], config)
+    h, w = images.shape[1:3]
+    labels = make_points_labels_batch(
+        batch["points"], batch["points_valid"], gen, h, w, config.cell
+    )
+    logits, _ = model.features(images, enable_descriptor=False)
+    loss = detector_loss(logits, labels, None, config.cell, config.detector_loss)
+    return {"loss": loss, "f1": samplewise_f1(logits, labels)}
+
+
+# ---------------------------------------------------------------------------
+# SuperPoint phase: joint detector + descriptor on augmented pairs
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _augment_and_encode(
+    batch: Batch, gen: torch.Generator, config: SuperPointConfig,
+    homo_config: HomographyConfig,
+):
+    """-> ``(warped, labels, wlabels, cell_mask (B, Hc, Wc), homog (B, 8),
+    images)``.  Draw order: photometric (when on), homographies, label
+    noise, warped-label noise."""
+    images = _prep_images(batch["image"], config)
+    h, w = images.shape[1:3]
+    if config.photometric_augment:
+        # before the geometric warp, as the reference applies its transforms
+        # at dataset-read time
+        images = photometric_augment_batch(gen, images)
+    warped, wpoints, wvalid, valid_mask, homog = homographic_augmentation_batch(
+        gen, images, batch["points"], batch["points_valid"], homo_config
+    )
+    labels = make_points_labels_batch(
+        batch["points"], batch["points_valid"], gen, h, w, config.cell
+    )
+    wlabels = make_points_labels_batch(wpoints, wvalid, gen, h, w, config.cell)
+    cell_mask = scale_valid_map(valid_mask, config.cell)
+    return warped, labels, wlabels, cell_mask, homog, images
+
+
+def superpoint_train_step_encoded(
+    state: TrainState, data: Batch, *, config: SuperPointConfig,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The step after augmentation: forward of both views at once, joint
+    loss, backward, update.  ``data``: ``images``, ``warped`` ``(B, H, W,
+    C)`` float32, ``labels``, ``wlabels`` ``(B, Hc, Wc)`` int64,
+    ``cell_mask (B, Hc, Wc)``, ``homog (B, 8)``."""
+    model = state.model.train()
+
+    def micro_loss(m):
+        mb = m["images"].shape[0]
+        both = torch.cat([m["images"], m["warped"]], dim=0)       # (2b, ...)
+        logits2, desc2 = model.features(both, enable_descriptor=True)
+        losses = global_loss(
+            logits2[:mb], m["labels"], logits2[mb:], m["wlabels"],
+            desc2[:mb], desc2[mb:], m["homog"], m["cell_mask"], config,
+        )
+        aux = ({k: v.detach() for k, v in losses.items()}, logits2[:mb].detach())
+        return losses["total"], aux
+
+    loss, auxes = _microbatched_backward(
+        micro_loss, model, data, config.microbatch_steps
+    )
+    losses = {k: torch.stack([a[0][k] for a in auxes]).mean()
+              for k in auxes[0][0]}
+    logits = _interleave([a[1] for a in auxes])
+    metrics = {
+        "loss": loss,
+        "detector_loss": losses["detector"] + losses["warped_detector"],
+        "descriptor_loss": losses["descriptor"],
+        "f1": samplewise_f1(logits, data["labels"]),
+        **_grad_norms(model),
+    }
+    state.optimizer.step()
+    state.step += 1
+    return state, metrics
+
+
+def superpoint_train_step(
+    state: TrainState, batch: Batch, gen: torch.Generator, *,
+    config: SuperPointConfig,
+    homo_config: HomographyConfig = HomographyConfig(),
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """``batch`` as for `magicpoint_train_step`."""
+    warped, labels, wlabels, cell_mask, homog, images = _augment_and_encode(
+        batch, gen, config, homo_config
+    )
+    data = {
+        "images": images, "warped": warped, "labels": labels,
+        "wlabels": wlabels, "cell_mask": cell_mask, "homog": homog,
+    }
+    return superpoint_train_step_encoded(state, data, config=config)
+
+
+@torch.no_grad()
+def superpoint_eval_step(
+    state: TrainState, batch: Batch, gen: torch.Generator, *,
+    config: SuperPointConfig,
+    homo_config: HomographyConfig = HomographyConfig(),
+) -> Dict[str, torch.Tensor]:
+    model = state.model.eval()
+    warped, labels, wlabels, cell_mask, homog, images = _augment_and_encode(
+        batch, gen, config, homo_config
+    )
+    b = images.shape[0]
+    logits2, desc2 = model.features(torch.cat([images, warped], dim=0))
+    losses = global_loss(
+        logits2[:b], labels, logits2[b:], wlabels, desc2[:b], desc2[b:],
+        homog, cell_mask, config,
+    )
+    return {
+        "loss": losses["total"],
+        "descriptor_loss": losses["descriptor"],
+        "f1": samplewise_f1(logits2[:b], labels),
+    }

@@ -1,4 +1,4 @@
-"""Committed ``.npz`` weight snapshots -> PyTorch ``state_dict``.
+"""Committed ``.npz`` weight snapshots <-> PyTorch ``state_dict``.
 
 The snapshots (`weights/*.npz`) are the JAX package's format: one array per
 ``/``-joined Flax tree path (``params/encoder/conv1/kernel``, ...).  This
@@ -12,10 +12,14 @@ PyTorch names, the inverse of the JAX package's checkpoint importer
   ``(in, out, kh, kw)`` is ``kernel[::-1, ::-1].transpose(2, 3, 0, 1)``;
 * BatchNorm ``scale/bias`` + ``mean/var`` -> ``weight/bias/running_mean/
   running_var``.
+
+`jax_variables_from_state_dict` is the way back, so trained parameters
+return to the ``.npz`` layout (`save_weights`).
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Dict, Mapping
 
@@ -136,3 +140,78 @@ def load_variables(path: str, device=None) -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
     sd = state_dict_from_jax_variables(load_weights(path))
     return {k: v.to(dev) for k, v in sd.items()}
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def _conv_back(sd: Mapping, name: str) -> dict:
+    return {"kernel": _np(sd[f"{name}.weight"]).transpose(2, 3, 1, 0)}
+
+
+def _bn_back(sd: Mapping, name: str):
+    return ({"scale": _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])},
+            {"mean": _np(sd[f"{name}.running_mean"]),
+             "var": _np(sd[f"{name}.running_var"])})
+
+
+def _layer_back(sd: Mapping, name: str):
+    p, s = {}, {}
+    i = 0
+    while f"{name}.{i}.conv1.weight" in sd:
+        pre = f"{name}.{i}"
+        bp = {"conv1": _conv_back(sd, f"{pre}.conv1"),
+              "conv2": _conv_back(sd, f"{pre}.conv2")}
+        bs = {}
+        bp["bn1"], bs["bn1"] = _bn_back(sd, f"{pre}.bn1")
+        bp["bn2"], bs["bn2"] = _bn_back(sd, f"{pre}.bn2")
+        if f"{pre}.identity_downsample.0.weight" in sd:
+            bp["identity_conv"] = _conv_back(sd, f"{pre}.identity_downsample.0")
+            bp["identity_bn"], bs["identity_bn"] = _bn_back(
+                sd, f"{pre}.identity_downsample.1")
+        p[f"block{i}"], s[f"block{i}"] = bp, bs
+        i += 1
+    return p, s
+
+
+def jax_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of `state_dict_from_jax_variables`: a ``state_dict``
+    under the reference's PyTorch names -> ``{"params", "batch_stats"}`` of
+    float32 numpy arrays in the Flax tree's layout."""
+    p = {"encoder": {}, "detector": {}, "descriptor": {}}
+    s = {"encoder": {}, "detector": {}, "descriptor": {}}
+    p["encoder"]["conv1"] = _conv_back(sd, "encoder.conv1")
+    p["encoder"]["bn1"], s["encoder"]["bn1"] = _bn_back(sd, "encoder.bn1")
+    for head, layer in (("encoder", "layer1"), ("encoder", "layer2"),
+                        ("detector", "layer"), ("descriptor", "layer_in"),
+                        ("descriptor", "layer_out")):
+        p[head][layer], s[head][layer] = _layer_back(sd, f"{head}.{layer}")
+    p["descriptor"]["up_sample"] = {
+        "kernel": np.ascontiguousarray(
+            _np(sd["descriptor.up_sample.weight"]).transpose(2, 3, 0, 1)[::-1, ::-1]),
+        "bias": _np(sd["descriptor.up_sample.bias"]),
+    }
+    p["descriptor"]["bn"], s["descriptor"]["bn"] = _bn_back(sd, "descriptor.bn")
+    return {"params": p, "batch_stats": s}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_weights(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Write a model ``state_dict`` as a portable ``.npz`` snapshot in the
+    JAX package's layout (one array per ``/``-joined tree path); written to
+    a temporary file and renamed."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    tmp = f"{path}.tmp.npz"  # .npz suffix so savez doesn't append its own
+    np.savez_compressed(tmp, **_flatten(jax_variables_from_state_dict(state_dict)))
+    os.replace(tmp, path)

@@ -7,7 +7,11 @@ fixtures, so it runs on a CUDA machine without JAX:
 
 Without a card every test skips.  Tolerances: decode within 1e-6 of its
 plain version (``expf`` against PyTorch's ``exp``, same float32 order of
-the 65-way sum up to a few ulps), NMS exactly (float compare and max only).
+the 65-way sum up to a few ulps), NMS exactly (float compare and max only),
+the descriptor loss as the JAX package's own kernel test
+(`tests/test_pallas.py:49-62`): value rtol 2e-5, gradients atol 2e-6 +
+rtol 2e-4 (the D-long dot products and the N-long sums run in another order
+than cuBLAS's and PyTorch's reductions).
 """
 
 import numpy as np
@@ -17,6 +21,10 @@ import torch
 from feature_point_cnn_tpu_torch.ops.kernels.decode import (
     decode_threshold_cuda,
     decode_threshold_plain,
+)
+from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
+    hinge_descriptor_loss_cuda,
+    hinge_descriptor_loss_plain,
 )
 from feature_point_cnn_tpu_torch.ops.kernels.nms import (
     grid_nms_cuda,
@@ -89,3 +97,74 @@ def test_kernels_reject_what_they_do_not_take(rng):
         grid_nms_cuda(_cuda(np.zeros((1, 8, 8))), 8)
     with pytest.raises(ValueError):
         grid_nms_cuda(_cuda(np.zeros((8, 8))), 4)
+
+
+def _desc_loss_inputs(rng, b, hc, wc, dim, zero=False):
+    """Unit descriptors, cell centers moved by a mild affine map, and a
+    mask with ~15% zeros, on the card."""
+    n = hc * wc
+    d = rng.standard_normal((2, b, n, dim))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if zero:
+        d[:] = 0.0
+    ys, xs = np.mgrid[0:hc, 0:wc]
+    centers = np.stack([ys, xs], -1).reshape(n, 2) * 8.0 + 4.0
+    warped = np.stack([centers[:, 0] * 0.98 + 0.02 * centers[:, 1] - 2.0,
+                       centers[:, 1] * 1.02 + 0.01 * centers[:, 0] + 3.0], -1)
+    warped = np.broadcast_to(warped, (b, n, 2))
+    mask = rng.random((b, n)) > 0.15
+    return (_cuda(d[0]), _cuda(d[1]), _cuda(warped), _cuda(centers),
+            _cuda(mask.astype(np.float32)))
+
+
+def _value_and_grads(fn, d, wd, rest, scale):
+    d = d.clone().requires_grad_(True)
+    wd = wd.clone().requires_grad_(True)
+    v = fn(d, wd, *rest, 250.0, 1.0, 0.2, 8) * scale
+    v.backward()
+    return v.detach(), d.grad, wd.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(2, 6, 8, 32), (1, 8, 16, 16), (2, 10, 14, 8), (3, 9, 15, 128)],
+    ids=lambda s: "x".join(map(str, s)))
+def test_descriptor_loss_kernels_match_plain(rng, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, hc, wc, dim = shape
+    d, wd, *rest = _desc_loss_inputs(rng, *shape)
+    scale = 1.0 / (float(rest[2].sum()) * hc * wc)   # the loss's normalisation
+    f0, b0 = (hinge_descriptor_loss_cuda.launches_fwd,
+              hinge_descriptor_loss_cuda.launches_bwd)
+    got = _value_and_grads(hinge_descriptor_loss_cuda, d, wd, rest, scale)
+    torch.cuda.synchronize()
+    assert hinge_descriptor_loss_cuda.launches_fwd == f0 + 1
+    assert hinge_descriptor_loss_cuda.launches_bwd == b0 + 1
+    want = _value_and_grads(hinge_descriptor_loss_plain, d, wd, rest, scale)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0.0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-6)
+    # fixed-order sums: a second run repeats bit for bit
+    again = _value_and_grads(hinge_descriptor_loss_cuda, d, wd, rest, scale)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_descriptor_loss_kernels_zero_descriptors_finite(rng):
+    d, wd, *rest = _desc_loss_inputs(rng, 1, 4, 4, 8, zero=True)
+    v, gd, gw = _value_and_grads(hinge_descriptor_loss_cuda, d, wd, rest, 1.0)
+    assert bool(torch.isfinite(v)) and bool(torch.isfinite(gd).all())
+    assert bool(torch.isfinite(gw).all())
+
+
+@pytest.mark.cuda
+def test_descriptor_loss_kernel_rejects_what_it_does_not_take(rng):
+    d, wd, *rest = _desc_loss_inputs(rng, 1, 4, 4, 8)
+    with pytest.raises(ValueError):
+        hinge_descriptor_loss_cuda(d.half(), wd, *rest, 250.0, 1.0, 0.2, 8)
+    with pytest.raises(ValueError):
+        hinge_descriptor_loss_cuda(d, wd[:, :8], *rest, 250.0, 1.0, 0.2, 8)
+    with pytest.raises(ValueError):
+        hinge_descriptor_loss_cuda(d, wd, rest[0], rest[1].cpu(), rest[2],
+                                   250.0, 1.0, 0.2, 8)
