@@ -23,11 +23,16 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    share, time by kernel), and each kernel against its plain version and
    its bound;
 6. descriptor loss: the forward and backward kernels against the plain
-   version (float32, TF32 off) at three small shapes, on all-zero
-   descriptors, and at (32, 30, 40, 128) on descriptors of the released
-   weights for a batch of scenes and their warps.  Tolerances: value rtol
-   2e-5; gradients rtol 2e-4 + atol 2e-6 (at full width the atol is 2e-6 of
-   the largest gradient entry, since the raw sum's gradients reach ~100);
+   version (float32, TF32 off) at three small shapes, at shapes that cross
+   every edge of the kernels' tiling (N = 195 = 128 + 64 + 3 with D = 128
+   and D = 8) and two that the wrapper pads to whole k-steps (D = 12, 100),
+   on all-zero descriptors, and at (32, 30, 40, 128) on descriptors of the
+   released weights for a batch of scenes and their warps.  Tolerances:
+   value rtol 2e-5; gradients rtol 2e-4 + atol 2e-6 (at full width the atol
+   is 2e-6 of the largest gradient entry, since the raw sum's gradients
+   reach ~100); a second run equal bit for bit.
+   One float32 `torch.bmm` at the same size, TF32 off and on, is timed as
+   the card's own yardstick of one product (the port never calls it);
 7. training: 20 joint `superpoint_train_step`s through `Trainer` at 240x320,
    batch 32, bf16, fresh seeded parameters, on scenes drawn with numpy: the
    forward and the backward wrapper each launched its kernels once a step
@@ -63,6 +68,18 @@ SHIFT = 16           # px; a multiple of the 8-px cell keeps detections equivari
 TRAIN_STEPS = 20     # joint steps of phase 7: 4 epochs of 160 scenes at batch 32
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM, TF32 on the tensor cores, dense
+# descriptor-loss kernels before their tensor-core redesign (float32 FMA
+# sweeps), NVIDIA H100 80GB HBM3 at 700 W, (32, 1200, 128): forward, backward.
+# Printed beside this run's times, never part of the result lines.
+DL_PREVIOUS_MS = {"fwd": 2.1473, "bwd": 3.6489}
+# the descriptor-loss kernels as a trace names them, with the N x N x D
+# products a launch of each runs (a gradient sweep rebuilds a and multiplies
+# dg by the chunk)
+DL_KERNEL_PRODUCTS = {"wgmma_sweep_kernel": 1, "wgmma_grad_kernel": 2,
+                      "split_kernel": 0, "split_transposed_kernel": 0,
+                      "sum_kernel": 0}
+DL_KERNEL_NAMES = tuple(DL_KERNEL_PRODUCTS)
 
 
 def polygon_scene(rng: np.random.Generator, h: int, w: int,
@@ -173,10 +190,11 @@ def host_median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
-                card: str) -> None:
+                card: str, named=()) -> None:
     """Trace ``calls`` runs of ``fn()`` after 3 untraced ones: the device's
     busy share of the wall time and the time by kernel, per ``unit`` (a call
-    holds ``per_call`` of them)."""
+    holds ``per_call`` of them); with ``named``, also the time and launches
+    of the kernels whose names hold one of those strings."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -199,19 +217,41 @@ def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
     for e in kernels[:12]:
         print(f"  {e.self_device_time_total / 1e3 / calls / per_call:9.5f} ms/{unit} "
               f"x{e.count // calls:<4d} {e.key[:90]}")
+    def short(key: str, k: str) -> str:      # the name with its template arguments
+        s = key[key.index(k):]
+        return s[:s.index(">") + 1] if s[len(k):len(k) + 1] == "<" else k
+
+    mine = [(short(e.key, k), e) for e in kernels for k in named if k in e.key]
+    if mine:
+        print(f"  of which the named kernels: "
+              f"{sum(e.self_device_time_total for _, e in mine) / 1e3 / calls / per_call:.5f} "
+              f"ms/{unit} in {sum(e.count for _, e in mine) // calls} launches: " +
+              ", ".join(f"{name} {e.self_device_time_total / 1e3 / calls / per_call:.4f}"
+                        for name, e in mine))
 
 
-def traced_launches(fn, kernel_names) -> int:
-    """CUDA launches of the named kernels in one traced run of ``fn()``."""
+def traced_launches(fn, kernel_names, calls: int = 3) -> dict:
+    """CUDA launches of each of the named kernels in one run of ``fn()``,
+    from a traced window of ``calls`` runs.  A window that comes back with
+    none of them (the tracer now and then delivers no device records) is
+    traced again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    counts = dict.fromkeys(kernel_names, 0)
+    for _ in range(3):
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and any(k in e.key for k in kernel_names))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {k: sum(e.count for e in events if k in e.key) // calls
+                  for k in kernel_names}
+        if any(counts.values()):
+            break
+    return counts
 
 
 def nms_inputs(decoded: torch.Tensor, seed: int):
@@ -284,9 +324,11 @@ def main(argv=None) -> int:
     logs = kernels.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}")
     for name, log in logs.items():
-        for line in log.splitlines():
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
             if "Used" in line:
-                print(f"  {name}: {line.strip()}")
+                spills = lines[i - 1].strip() if i and "spill" in lines[i - 1] else ""
+                print(f"  {name}: {line.strip()}; {spills}")
 
     cfg = SuperPointConfig()
     weights = released_path()
@@ -424,7 +466,8 @@ def main(argv=None) -> int:
     rng6 = np.random.default_rng(args.seed + 6)
     homog6 = torch.tensor([1.02, 0.01, 3.0, -0.02, 0.98, -2.0, 1e-4, -1e-4],
                           device="cuda")
-    for shape in ((2, 6, 8, 32), (1, 8, 16, 16), (2, 10, 14, 8), (1, 4, 4, 8)):
+    for shape in ((2, 6, 8, 32), (1, 8, 16, 16), (2, 10, 14, 8), (2, 13, 15, 128),
+                  (2, 13, 15, 8), (2, 10, 14, 12), (1, 9, 15, 100), (1, 4, 4, 8)):
         b6, hc6, wc6, _ = shape
         zero = shape == (1, 4, 4, 8)       # the zero-row hazard of the rsqrt form
         desc = torch.from_numpy(rng6.standard_normal((2, *shape)).astype(np.float32)).cuda()
@@ -484,6 +527,18 @@ def main(argv=None) -> int:
           f"/item, value {float(got[0]):.4f} vs plain {float(want[0]):.4f} "
           f"(|diff| {dl_fwd_err:.3g}), grad max|diff| {dl_bwd_err:.3g} of max|grad| {gmax:.3g}")
     del got, want, again
+
+    # the card's own yardstick of one N x N x D product: cuBLAS through
+    # torch.bmm, float32 and TF32 (printed only; the port never calls it)
+    yard = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        yard[tf32] = event_ms(lambda: torch.bmm(d_t, wd_t.transpose(1, 2)), 20)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prod_flop = 2.0 * tb * n_t * n_t * dim_t
+    print(f"product yardstick {(tb, n_t, dim_t)}: torch.bmm float32 {yard[False]:.4f} ms "
+          f"({prod_flop / yard[False] / 1e9:.1f} TFLOP/s), allow_tf32 {yard[True]:.4f} ms "
+          f"({prod_flop / yard[True] / 1e9:.1f} TFLOP/s), writing the (B, N, N) product [{card}]")
 
     # ---- 7. the training path at full width -----------------------------
     torch.backends.cudnn.allow_tf32 = True
@@ -603,7 +658,7 @@ def main(argv=None) -> int:
           ", ".join(f"{k} {v:.3f} ms ({v / total:.2f})" for k, v in med.items()) +
           f"; sum {total:.3f} ms [{card}]")
     prof_window(lambda: S.superpoint_train_step(st, batch_t, gen7, config=tcfg),
-                3, 1, f"b{tb} train step", "step", card)
+                3, 1, f"b{tb} train step", "step", card, named=DL_KERNEL_NAMES)
     del st
 
     ncell, npix = logits.shape[0] * logits.shape[1] * logits.shape[2], dec_k.numel()
@@ -650,20 +705,29 @@ def main(argv=None) -> int:
     dl_cuda_launches = {
         "fwd": traced_launches(
             lambda: hinge_descriptor_loss_cuda(d_req, wd_req, *full_args),
-            ("sweep_kernel", "sum_kernel")),
+            DL_KERNEL_NAMES),
         "bwd": traced_launches(
             lambda: torch.autograd.grad(v_k, (d_req, wd_req), retain_graph=True),
-            ("sweep_kernel", "sum_kernel")),
+            DL_KERNEL_NAMES),
     }
-    check(all(v > 0 for v in dl_cuda_launches.values()),
-          "the traced wrapper calls show the kernels' launches")
+    # products run, from the trace: full width went through the tensor-core
+    # sweeps if and only if these are their launches
+    dl_products = {k: sum(DL_KERNEL_PRODUCTS[name] * count for name, count in v.items())
+                   for k, v in dl_cuda_launches.items()}
+    print(f"descriptor-loss launches a call: {dl_cuda_launches}")
+    check(all(v > 0 for v in dl_products.values()),
+          "the traced wrapper calls show the tensor-core sweeps' launches")
     # The bound counts the products the function needs, as the TPU kernel
     # computes it: 2 forward (a for the row sums, a again for the hinge), 4
-    # backward (2 rebuilt, 2 gradient products).  The port's sweeps run 3
-    # and 6; the extra ones are the design's cost, not part of the bound.
+    # backward (2 rebuilt, 2 gradient products).  The port's sweeps run more
+    # (`products_run`, from the trace); the extra ones are the design's
+    # cost, not part of the bound.
+    # The kernels reach float32 accuracy on the tensor cores with three TF32
+    # products for one, so the least time is at a third of the TF32 peak;
+    # the bound at the float32 FMA peak is kept beside it.
     for name, n_prod, nbytes, err in (("fwd", 2, fwd_bytes, dl_fwd_err),
                                       ("bwd", 4, bwd_bytes, dl_bwd_err)):
-        t_ops, t_bytes = n_prod * prod / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = n_prod * prod / (TF32_OPS_PER_S / 3), nbytes / HBM_BYTES_PER_S
         rows.append(dict(
             name=f"descriptor_loss_{name}", route="cuda",
             source="feature_point_cnn_tpu_torch/csrc/descriptor_loss.cu",
@@ -676,11 +740,23 @@ def main(argv=None) -> int:
             library_ms=None, shape=[tb, n_t, dim_t],
             wrapper_calls_per_step=dl_launches[f"descriptor_loss_{name}"]
             / trainer.state.step,
-            cuda_launches_per_call=dl_cuda_launches[name],
-            plain_fwd_bwd_ms=dl_ms["p_fwd"] + dl_ms["p_bwd"]))
+            cuda_launches_per_call=sum(dl_cuda_launches[name].values()),
+            plain_fwd_bwd_ms=dl_ms["p_fwd"] + dl_ms["p_bwd"],
+            bound_rate="3xTF32 on the tensor cores, 495/3 TFLOP/s",
+            bound_fma_ms=1e3 * max(n_prod * prod / FP32_OPS_PER_S, t_bytes),
+            products_run=dl_products[name],
+            achieved_tflops=dl_products[name] * prod / dl_ms[f"k_{name}"] / 1e9))
+        r, prev = rows[-1], DL_PREVIOUS_MS[name]
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms against {prev:.4f} ms "
+              f"before the tensor-core redesign ({prev / r['ms']:.2f}x"
+              f"{'' if r['ms'] < prev else ', NOT faster'}), "
+              f"{r['achieved_tflops']:.1f} TFLOP/s over {r['products_run']} products run "
+              f"({n_prod} needed), bound at the float32 FMA peak "
+              f"{r['bound_fma_ms']:.4f} ms [{card}]")
     for r in rows:
         print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms vs plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        check(r["ms"] >= r["bound_ms"], f"{r['name']}: no time reads under its bound")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,12 @@ the 65-way sum up to a few ulps), NMS exactly (float compare and max only),
 the descriptor loss as the JAX package's own kernel test
 (`tests/test_pallas.py:49-62`): value rtol 2e-5, gradients atol 2e-6 +
 rtol 2e-4 (the D-long dot products and the N-long sums run in another order
-than cuBLAS's and PyTorch's reductions).
+than cuBLAS's and PyTorch's reductions; each product is three TF32
+products of split operands on the tensor cores, float32-grade).  The shapes
+cross every edge of the kernels' tiling (N = 195 is 128 + 64 + 3, D = 8 is
+one k-step, D = 128 the widest, N = 4800 is a 480x640 image's cells; D = 12,
+100 and 5 are widths the wrapper zero-pads to whole k-steps); D = 136 is
+beyond the kernels' limit and raises.
 """
 
 import numpy as np
@@ -127,11 +132,13 @@ def _value_and_grads(fn, d, wd, rest, scale):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "shape", [(2, 6, 8, 32), (1, 8, 16, 16), (2, 10, 14, 8), (3, 9, 15, 128)],
+    "shape", [(2, 6, 8, 32), (1, 8, 16, 16), (2, 10, 14, 8), (3, 9, 15, 128),
+              (2, 13, 15, 128), (2, 13, 15, 8), (1, 60, 80, 64), (2, 10, 14, 12),
+              (1, 9, 15, 100), (2, 6, 8, 5)],
     ids=lambda s: "x".join(map(str, s)))
 def test_descriptor_loss_kernels_match_plain(rng, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
-    b, hc, wc, dim = shape
+    _, hc, wc, _ = shape
     d, wd, *rest = _desc_loss_inputs(rng, *shape)
     scale = 1.0 / (float(rest[2].sum()) * hc * wc)   # the loss's normalisation
     f0, b0 = (hinge_descriptor_loss_cuda.launches_fwd,
@@ -168,3 +175,6 @@ def test_descriptor_loss_kernel_rejects_what_it_does_not_take(rng):
     with pytest.raises(ValueError):
         hinge_descriptor_loss_cuda(d, wd, rest[0], rest[1].cpu(), rest[2],
                                    250.0, 1.0, 0.2, 8)
+    wide = _desc_loss_inputs(rng, 1, 4, 4, 136)     # D beyond the kernels' 128
+    with pytest.raises(ValueError):
+        hinge_descriptor_loss_cuda(*wide, 250.0, 1.0, 0.2, 8)
