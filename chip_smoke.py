@@ -9,10 +9,14 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 1. the card's name and power limit; build the CUDA kernels from
    `feature_point_cnn_tpu_torch/csrc/` (one nvcc each, in parallel);
 2. decode: the kernel against its plain version on logits of the released
-   weights at 480x640, B = 8 (max |diff| <= 1e-6, mask flips only where
-   |p - t| <= 1e-6);
+   weights at 480x640, B = 8 and 32, and on ragged (1, 9, 11) logits (max
+   |diff| <= 1e-6, mask flips only where |p - t| <= 1e-6); a trace shows
+   one CUDA launch a call;
 3. NMS: the kernel against its plain version, exactly, on the decode
-   output, random maps, a monotone ramp and bit-identical plateaus;
+   output, random maps, a monotone ramp, bit-identical plateaus, a
+   1080x1920 map (its bands in device memory) and 33 frames (more clusters
+   than run at once); the device's rounds a frame equal the plain loop's; a
+   trace shows one CUDA launch a call on the decode output and the ramp;
 4. end to end: `SuperPointFrontend(device="cuda").frame` on a keyframe and
    a batch of 8 frames whose first is the keyframe's scene shifted by 16 px;
    both kernels must have launched, with >= 30 matches of which >= 80% agree
@@ -44,6 +48,12 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 8. training timing: ms/step with the gate on and off, its parts, a traced
    window of 3 steps, peak memory.
 
+The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
+and under ``b32`` at B = 32, the kernel's device time from a trace
+(``device_ms``), CUDA events over back-to-back calls (``ms``, warm) and
+around single calls after a 256 MB write (``cold_ms``); the bound is held
+against ``cold_ms``.
+
 It prints a ``{"kernels": [...]}`` line, the card's line again, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 and
 prints no result.  It imports nothing of JAX or of the JAX package.
@@ -73,6 +83,10 @@ TF32_OPS_PER_S = 495e12     # H100 SXM, TF32 on the tensor cores, dense
 # sweeps), NVIDIA H100 80GB HBM3 at 700 W, (32, 1200, 128): forward, backward.
 # Printed beside this run's times, never part of the result lines.
 DL_PREVIOUS_MS = {"fwd": 2.1473, "bwd": 3.6489}
+# decode and NMS before their redesign (one warp a cell; two launches a
+# round with the host reading a flag), NVIDIA H100 80GB HBM3 at 700 W, B = 8,
+# events back to back.  Printed beside this run's times only.
+PREVIOUS_MS = {"decode_threshold": 0.0259, "grid_nms": 0.3348}
 # the descriptor-loss kernels as a trace names them, with the N x N x D
 # products a launch of each runs (a gradient sweep rebuilds a and multiplies
 # dg by the chunk)
@@ -230,14 +244,15 @@ def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
                         for name, e in mine))
 
 
-def traced_launches(fn, kernel_names, calls: int = 3) -> dict:
-    """CUDA launches of each of the named kernels in one run of ``fn()``,
-    from a traced window of ``calls`` runs.  A window that comes back with
-    none of them (the tracer now and then delivers no device records) is
-    traced again, three times at most."""
+def trace_device(fn, calls: int = 3) -> dict:
+    """Each CUDA operation (kernel, copy, fill) of one run of ``fn()``, from
+    a traced window of ``calls`` runs after one untraced run: ``{name:
+    (launches a run, device ms a launch)}``.  A window that comes back with
+    no device record (the tracer now and then delivers none) is traced
+    again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
-    counts = dict.fromkeys(kernel_names, 0)
+    ops = {}
     for _ in range(3):
         fn()
         torch.cuda.synchronize()
@@ -245,13 +260,49 @@ def traced_launches(fn, kernel_names, calls: int = 3) -> dict:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        counts = {k: sum(e.count for e in events if k in e.key) // calls
-                  for k in kernel_names}
-        if any(counts.values()):
+        ops = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
+        if ops:
             break
-    return counts
+    return ops
+
+
+def traced_launches(fn, kernel_names, calls: int = 3) -> dict:
+    """CUDA launches of each of the named kernels in one run of ``fn()``."""
+    ops = trace_device(fn, calls)
+    return {k: int(sum(n for key, (n, _) in ops.items() if k in key))
+            for k in kernel_names}
+
+
+def one_launch(fn, kernel: str, what: str, calls: int = 3) -> float:
+    """Checks from a trace that a run of ``fn()`` is one CUDA launch, of
+    ``kernel``; returns its device ms (mean over the traced runs)."""
+    ops = trace_device(fn, calls)
+    mine = [(n, ms) for key, (n, ms) in ops.items() if kernel in key]
+    # a traced window may lose a record now and then: 9 of 10 still read 1
+    check(len(ops) == 1 and len(mine) == 1 and round(mine[0][0]) == 1,
+          f"{what}: one CUDA launch a call, of {kernel} (traced {ops})")
+    return mine[0][1]
+
+
+def cold_ms(fn, flush: torch.Tensor, iters: int = 10) -> float:
+    """Median device time of single runs of ``fn()``, each after ``flush``
+    (more than the 50 MB L2) was written over, so the inputs come from
+    device memory.  A sleep queued before the window keeps the host's
+    enqueue of ``fn()`` out of it."""
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.fill_(1.0)
+        torch.cuda._sleep(1_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def nms_inputs(decoded: torch.Tensor, seed: int):
@@ -273,6 +324,11 @@ def nms_inputs(decoded: torch.Tensor, seed: int):
     plate[3, 100:104, 110:114] = 0.5             # the window + an isolated
     plate[3, 300, 400] = 0.5                     # tied point
     out["plateaus"] = torch.from_numpy(plate).to(dev)
+    for name, shape in (("large_1080x1920", (1, 1080, 1920)),   # bands in device memory
+                        ("batch_33", (33, H, W))):              # more clusters than run at once
+        vals = rng.random(shape, dtype=np.float32) * 0.9 + 0.05
+        vals[rng.random(shape, dtype=np.float32) >= 0.05] = 0.0
+        out[name] = torch.from_numpy(vals).to(dev)
     return out
 
 
@@ -297,6 +353,7 @@ def main(argv=None) -> int:
     from feature_point_cnn_tpu_torch.ops import kernels
     from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
     from feature_point_cnn_tpu_torch.ops.kernels.decode import (
+        cell_row_layout,
         decode_threshold_cuda,
         decode_threshold_plain,
     )
@@ -307,6 +364,9 @@ def main(argv=None) -> int:
     from feature_point_cnn_tpu_torch.ops.kernels.nms import (
         grid_nms_cuda,
         grid_nms_plain,
+        max_active_clusters,
+        nms_layout,
+        plain_rounds,
     )
     from feature_point_cnn_tpu_torch.train import loss as L
     from feature_point_cnn_tpu_torch.train import steps as S
@@ -343,29 +403,55 @@ def main(argv=None) -> int:
     batch = (batch_u8.float() / 255.0).expand(-1, -1, -1, 3).contiguous()
 
     # ---- 2. decode ------------------------------------------------------
+    rng2 = np.random.default_rng(args.seed + 2)
     with torch.inference_mode():
         logits, _ = fe.model.features(batch)
-        dec_k = decode_threshold_cuda(logits, cfg.cell, t)
-        dec_p = decode_threshold_plain(logits, cfg.cell, t)
-        prob = decode_prob_map(logits, cfg.cell)
-    torch.cuda.synchronize()
-    flip = (dec_k > 0) != (dec_p > 0)
-    n_flip = int(flip.sum())
-    check(bool(((prob[flip] - t).abs() <= 1e-6).all()), "decode mask flips only at |p-t|<=1e-6")
-    dec_err = float((dec_k - dec_p).abs()[~flip].max())
-    check(dec_err <= 1e-6, f"decode max|diff| {dec_err} <= 1e-6")
-    print(f"decode: logits {tuple(logits.shape)} max|diff| {dec_err:.3g} "
-          f"mask flips {n_flip} kept {int((dec_k > 0).sum())}")
+        logits32, _ = fe.model.features(batch.repeat(4, 1, 1, 1))
+    ragged = torch.from_numpy((rng2.standard_normal((1, 9, 11, 65)) * 4)
+                              .astype(np.float32)).cuda()
+    dec_err, decoded = 0.0, {}
+    for name, lg in (("b8", logits), ("b32", logits32), ("ragged", ragged)):
+        with torch.inference_mode():
+            dec_k = decode_threshold_cuda(lg, cfg.cell, t)
+            dec_p = decode_threshold_plain(lg, cfg.cell, t)
+            prob = decode_prob_map(lg, cfg.cell)
+        torch.cuda.synchronize()
+        flip = (dec_k > 0) != (dec_p > 0)
+        n_flip = int(flip.sum())
+        check(bool(((prob[flip] - t).abs() <= 1e-6).all()),
+              f"decode {name}: mask flips only at |p-t|<=1e-6")
+        err = float((dec_k - dec_p).abs()[~flip].max())
+        check(err <= 1e-6, f"decode {name}: max|diff| {err} <= 1e-6")
+        dec_err = max(dec_err, err)
+        decoded[name] = dec_k
+        print(f"decode: {name} logits {tuple(lg.shape)} max|diff| {err:.3g} "
+              f"mask flips {n_flip} kept {int((dec_k > 0).sum())}")
+    for name, lg in (("b8", logits), ("ragged", ragged)):
+        one_launch(lambda: decode_threshold_cuda(lg, cfg.cell, t), "decode_row_kernel",
+                   f"decode {name}")
+    print("decode: one CUDA launch a call (traced at B = 8 and on the ragged logits)")
+    dec_k, dec32 = decoded["b8"], decoded["b32"]
 
     # ---- 3. NMS ---------------------------------------------------------
     nms_rounds = {}
     for name, scores in nms_inputs(dec_k, args.seed).items():
         got = grid_nms_cuda(scores, cfg.nms_dist)
-        nms_rounds[name] = grid_nms_cuda.last_rounds
+        rounds = grid_nms_cuda.last_rounds
         want = grid_nms_plain(scores, cfg.nms_dist)
+        want_rounds = plain_rounds(scores, cfg.nms_dist)
+        torch.cuda.synchronize()
         check(torch.equal(got, want), f"NMS exact on {name}")
-        print(f"nms: {name} {tuple(scores.shape)} exact, rounds "
-              f"{nms_rounds[name]}, kept {int((got > 0).sum())}")
+        nms_rounds[name] = rounds.tolist()
+        check(nms_rounds[name] == want_rounds,
+              f"NMS rounds on {name}: device {nms_rounds[name]} vs plain {want_rounds}")
+        print(f"nms: {name} {tuple(scores.shape)} exact, rounds a frame (device = plain) "
+              f"{nms_rounds[name] if len(want_rounds) <= 8 else f'{min(want_rounds)}-{max(want_rounds)}'}, "
+              f"kept {int((got > 0).sum())}")
+        if name in ("decode_output", "monotone_ramp"):
+            one_launch(lambda: grid_nms_cuda(scores, cfg.nms_dist), "grid_nms_kernel",
+                       f"NMS {name}")
+            print(f"nms: {name} is one CUDA launch a call (traced), "
+                  f"{max(nms_rounds[name])} rounds on the device")
 
     # ---- 4. end to end: the main path ----------------------------------
     n = min(256, cfg.max_keypoints)
@@ -378,7 +464,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     launches = {"decode_threshold": decode_threshold_cuda.launches,
                 "grid_nms": grid_nms_cuda.launches}
-    main_rounds = grid_nms_cuda.last_rounds
+    main_rounds = grid_nms_cuda.last_rounds.tolist()
     print(f"main path launches: {launches} (last NMS rounds {main_rounds})")
     check(all(v > 0 for v in launches.values()), "both kernels ran on the main path")
 
@@ -447,6 +533,78 @@ def main(argv=None) -> int:
         prof_window(lambda: fe.frame(imgs_u8, k_desc[0], k_num[0]), 5, b,
                     f"b{b} frame", "frame", card)
 
+
+    # rows 1-2 at the main path's B = 8 and at B = 32: the device's own time
+    # (trace, back to back), events back to back ("ms", warm: the input is
+    # in L2 as the main path finds it) and around single launches after a
+    # 256 MB write ("cold_ms": the input comes from device memory).  The
+    # bound check and the share of the bound use cold_ms.
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    nms_lay = nms_layout(H, W, cfg.nms_dist)
+
+    def measure(kind, x, rounds):
+        b_ = x.shape[0]
+        if kind == "decode":
+            fn = lambda: decode_threshold_cuda(x, cfg.cell, t)
+            plain = lambda: decode_threshold_plain(x, cfg.cell, t)
+            nbytes = x.numel() * 4 + b_ * H * W * 4
+            ops = x.numel() // 65 * 65 * 5     # sub, exp, add, div, compare a logit
+        else:
+            fn = lambda: grid_nms_cuda(x, cfg.nms_dist)
+            plain = lambda: grid_nms_plain(x, cfg.nms_dist)
+            nbytes = 2 * x.numel() * 4
+            # the rounds this input needs, each two separable window maxima
+            ops = sum(rounds) * H * W * (2 * 2 * 2 * cfg.nms_dist + 4)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        m = dict(shape=list(x.shape),
+                 device_ms=one_launch(fn, "decode_row_kernel" if kind == "decode"
+                                      else "grid_nms_kernel", f"{kind} B = {b_}", calls=10),
+                 ms=event_ms(fn, 100 if kind == "decode" else 20),
+                 cold_ms=cold_ms(fn, flush),
+                 plain_ms=event_ms(plain, 20 if kind == "decode" else 5),
+                 bound_ms=1e3 * max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        m["bound_share"] = m["bound_ms"] / m["cold_ms"]
+        return m
+
+    dec8, dec32m = measure("decode", logits, None), measure("decode", logits32, None)
+    nms8 = measure("nms", dec_k, nms_rounds["decode_output"])
+    rounds32 = plain_rounds(dec32, cfg.nms_dist)
+    nms32 = measure("nms", dec32, rounds32)
+    seg = cell_row_layout(logits.shape[2])
+    rows = [
+        dict(name="decode_threshold", route="cuda",
+             source="feature_point_cnn_tpu_torch/csrc/decode_threshold.cu",
+             replaces="feature_point_cnn_tpu/ops/pallas/decode.py:41",
+             launches=launches["decode_threshold"], max_abs_err=dec_err,
+             **{k: dec8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None, shape=dec8["shape"], device_ms=dec8["device_ms"],
+             cold_ms=dec8["cold_ms"], bound_share=dec8["bound_share"],
+             bound_check="cold_ms", cuda_launches_per_call=1,
+             segment_cells=seg["seg"], smem_bytes_per_block=seg["smem_bytes"],
+             bulk_copy=seg["bulk"], b32=dec32m),
+        dict(name="grid_nms", route="cuda",
+             source="feature_point_cnn_tpu_torch/csrc/grid_nms.cu",
+             replaces="feature_point_cnn_tpu/ops/pallas/nms.py:112",
+             launches=launches["grid_nms"], max_abs_err=0.0,
+             **{k: nms8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None, shape=nms8["shape"], device_ms=nms8["device_ms"],
+             cold_ms=nms8["cold_ms"], bound_share=nms8["bound_share"],
+             bound_check="cold_ms", cuda_launches_per_call=1,
+             rounds=nms_rounds["decode_output"],
+             cluster_ctas=nms_lay.cluster, smem_bytes_per_cta=nms_lay.smem_bytes,
+             band_in_shared=nms_lay.band_in_shared,
+             max_active_clusters=max_active_clusters(H, W, cfg.nms_dist),
+             b32=dict(nms32, rounds=rounds32)),
+    ]
+    for r in rows:
+        prev = PREVIOUS_MS[r["name"]]
+        print(f"kernel {r['name']}: B = 8 device {r['device_ms']:.4f} ms, warm {r['ms']:.4f}, "
+              f"cold {r['cold_ms']:.4f} (the design before, warm: {prev:.4f}); B = 32 device "
+              f"{r['b32']['device_ms']:.4f}, warm {r['b32']['ms']:.4f}, cold "
+              f"{r['b32']['cold_ms']:.4f}, bound {r['b32']['bound_ms']:.4f} "
+              f"({r['b32']['bound_share']:.2f} of cold) [{card}]")
+    del flush, logits32, dec32, decoded, ragged   # out of the training phases' peak
 
     # ---- 6. descriptor loss: kernels against the plain version ----------
     torch.backends.cudnn.allow_tf32 = False
@@ -661,33 +819,6 @@ def main(argv=None) -> int:
                 3, 1, f"b{tb} train step", "step", card, named=DL_KERNEL_NAMES)
     del st
 
-    ncell, npix = logits.shape[0] * logits.shape[1] * logits.shape[2], dec_k.numel()
-    dec_bytes = logits.numel() * 4 + npix * 4
-    dec_ops = ncell * 65 * 5      # sub, exp, add, div, compare per logit
-    nms_ops = nms_rounds["decode_output"] * npix * (2 * 2 * 2 * cfg.nms_dist + 4)
-    rows = [
-        dict(name="decode_threshold", route="cuda",
-             source="feature_point_cnn_tpu_torch/csrc/decode_threshold.cu",
-             replaces="feature_point_cnn_tpu/ops/pallas/decode.py:41",
-             launches=launches["decode_threshold"], max_abs_err=dec_err,
-             ms=event_ms(lambda: decode_threshold_cuda(logits, cfg.cell, t), 100),
-             plain_ms=event_ms(lambda: decode_threshold_plain(logits, cfg.cell, t), 100),
-             bound_ms=1e3 * max(dec_bytes / HBM_BYTES_PER_S, dec_ops / FP32_OPS_PER_S),
-             bound_by="bytes" if dec_bytes / HBM_BYTES_PER_S >= dec_ops / FP32_OPS_PER_S
-             else "operations",
-             library_ms=None, shape=list(logits.shape)),
-        dict(name="grid_nms", route="cuda",
-             source="feature_point_cnn_tpu_torch/csrc/grid_nms.cu",
-             replaces="feature_point_cnn_tpu/ops/pallas/nms.py:112",
-             launches=launches["grid_nms"], max_abs_err=0.0,
-             ms=event_ms(lambda: grid_nms_cuda(dec_k, cfg.nms_dist), 20),
-             plain_ms=event_ms(lambda: grid_nms_plain(dec_k, cfg.nms_dist), 20),
-             bound_ms=1e3 * max(2 * npix * 4 / HBM_BYTES_PER_S, nms_ops / FP32_OPS_PER_S),
-             bound_by="bytes" if 2 * npix * 4 / HBM_BYTES_PER_S >= nms_ops / FP32_OPS_PER_S
-             else "operations",
-             library_ms=None, shape=list(dec_k.shape),
-             rounds=nms_rounds["decode_output"]),
-    ]
     prod = 2.0 * tb * n_t * n_t * dim_t         # one N x N x D product
     dl_in = 4 * (2 * d_t.numel() + wcent_t.numel() + centers_t.numel() + mask_t.numel())
     fwd_bytes = dl_in + 4 * (2 * tb * n_t + 1)  # + rr, c and the loss out
@@ -754,9 +885,14 @@ def main(argv=None) -> int:
               f"({n_prod} needed), bound at the float32 FMA peak "
               f"{r['bound_fma_ms']:.4f} ms [{card}]")
     for r in rows:
+        timed = r.get("bound_check", "ms")
         print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms vs plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        check(r["ms"] >= r["bound_ms"], f"{r['name']}: no time reads under its bound")
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"held against {timed} {r[timed]:.4f}")
+        check(r[timed] >= r["bound_ms"], f"{r['name']}: {timed} not under its bound")
+        if "b32" in r:
+            check(r["b32"][timed] >= r["b32"]["bound_ms"],
+                  f"{r['name']} B = 32: {timed} not under its bound")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 Kernel: `feature_point_cnn_tpu_torch/csrc/decode_threshold.cu`, which
 replaces the TPU kernel `feature_point_cnn_tpu/ops/pallas/decode.py:
 decode_threshold_pallas`.  It is bound by bytes (1.25 MB of logits read and
-1.23 MB of map written per 480x640 frame, about 0.74 us at 3.35 TB/s): one
-warp per cell reads the logits once and writes the thresholded map once,
-so the softmax never reaches device memory.
+1.23 MB of map written per 480x640 frame, about 0.74 us at 3.35 TB/s).  A
+block takes a segment of up to 80 cells of one cell row (a whole 640-px
+row): one bulk copy brings its logits into shared memory, a warp a cell
+takes the softmax there, and the thresholded (8, cells*8) tile leaves as 8
+contiguous output rows.  The softmax never reaches device memory.
 
 Plain version: `softmax65` + `restore_prob_map` + threshold.  The wrapper
 takes it only for a CPU tensor; for a CUDA tensor it launches the kernel or
@@ -30,6 +32,24 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "decode_threshold_launch": (_I, (_P, _P, _I, _I, _I, ctypes.c_float, _P)),
 }
+# the kernel's constants (`csrc/decode_threshold.cu`)
+_CHANNELS = 65      # 64 cell pixels and the dustbin
+_SEG_CELLS = 80     # cells a block decodes at most
+_TILE_PAD = 8       # floats of padding per row of the output tile
+_BAR_BYTES = 16     # the mbarrier's room
+
+
+def cell_row_layout(wc: int) -> dict:
+    """How the kernel cuts a cell row of ``wc`` cells: cells a block
+    (``seg``), blocks a cell row (``nseg``), a block's dynamic shared memory
+    (the source's ``segment_smem_bytes``), and whether its logits arrive by
+    one bulk copy (``wc % 4 == 0``: every segment's run starts and ends on
+    16 bytes)."""
+    seg = min(wc, _SEG_CELLS)
+    logits_floats = -(-seg * _CHANNELS // 4) * 4
+    return dict(seg=seg, nseg=-(-wc // seg),
+                smem_bytes=_BAR_BYTES + 4 * logits_floats + 4 * 8 * (seg * 8 + _TILE_PAD),
+                bulk=wc % 4 == 0)
 
 
 def decode_threshold_plain(

@@ -3,9 +3,12 @@
 Kernel: `feature_point_cnn_tpu_torch/csrc/grid_nms.cu`, which replaces the
 TPU kernel `feature_point_cnn_tpu/ops/pallas/nms.py:grid_nms_pallas`.  It is
 bound by bytes (each frame's map read once and written once: 2.46 MB, about
-0.73 us per 480x640 frame at 3.35 TB/s); the map stays in device memory and
-each suppression round is two tiled launches, with the host reading a
-convergence flag between rounds (the source note has the design).
+0.73 us per 480x640 frame at 3.35 TB/s).  One launch a call runs the whole
+convergence loop on the device: a thread-block cluster holds a frame, each
+CTA a band of rows in its shared memory, reading its neighbours' halo rows
+through distributed shared memory (the source note has the design).  Maps
+too large for the cluster's shared memory keep the bands in a device-memory
+scratch instead (`nms_layout`).
 
 Plain version: the separable max-pool loop of `nms.py:41-109` on the same
 priority key; it is also the port's `ops/detection.py:grid_nms`.  The
@@ -16,6 +19,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +33,42 @@ from feature_point_cnn_tpu_torch.ops.kernels import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "grid_nms_launch": (
-        _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_I), _P)
+        _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
     ),
+    "grid_nms_max_active_clusters": (_I, (_I, _I, _I, _I, _I, ctypes.POINTER(_I))),
 }
+# the kernel's constants (`csrc/grid_nms.cu`)
+_MAX_CLUSTER = 8         # CTAs a cluster, the portable limit
+_SMEM_LIMIT = 232448     # dynamic shared memory a CTA may use
+_SMEM_RESERVE = 64       # the convergence slot and the mbarrier
+_STATE_BYTES = 5         # a pixel's remaining key (4 B) and flags (1 B)
+_STRIP = 128             # columns a warp task covers
+
+
+class NmsLayout(NamedTuple):
+    cluster: int           # CTAs holding one frame
+    rows_per_band: int     # rows of the tallest band
+    smem_bytes: int        # dynamic shared memory a CTA
+    band_in_shared: bool   # False: the state lies in a device-memory scratch
+
+
+def nms_layout(h: int, w: int, dist_thresh: int) -> NmsLayout:
+    """The kernel's launch for ``(H, W)`` maps at radius ``dist_thresh``
+    (the batch only sets the number of clusters).  CTA k of a cluster owns
+    rows ``[k*H//C, (k+1)*H//C)``; C halves from 8 until every band is at
+    least ``max(r, 1)`` rows tall, so a halo reaches one neighbour only.
+    A CTA's shared memory holds 64 B, two activity bytes and a 2-byte list
+    entry a (row, 128-column strip) of its band, and the band's state when the tallest fits the
+    232,448 B a CTA may have (up to ~370 K pixels a frame at C = 8); else the
+    state lies in a device-memory scratch of 5 B a pixel."""
+    cluster = _MAX_CLUSTER
+    while cluster > 1 and h // cluster < max(dist_thresh, 1):
+        cluster //= 2
+    rows = -(-h // cluster)
+    base = _SMEM_RESERVE + -(-4 * rows * -(-w // _STRIP) // 16) * 16
+    in_shared = base + _STATE_BYTES * rows * w <= _SMEM_LIMIT
+    return NmsLayout(cluster, rows, base + (_STATE_BYTES * rows * w if in_shared else 0),
+                     in_shared)
 
 
 def nms_priority_key(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
@@ -63,6 +100,26 @@ def _maxpool_separable(x: torch.Tensor, radius: int) -> torch.Tensor:
     return F.max_pool2d(y, (1, k), stride=1, padding=(0, radius))[:, 0]
 
 
+def _plain_loop(scores: torch.Tensor, dist_thresh: int, num_iters: int):
+    """The plain version's rounds in turn: yields each round's winners and,
+    when running to convergence, which frames held a candidate as it
+    began."""
+    remaining = nms_priority_key(scores, dist_thresh)
+    cap = num_iters if num_iters > 0 else scores.shape[-2] * scores.shape[-1]
+    for _ in range(cap):
+        left = None
+        if num_iters == 0:
+            left = (remaining > 0.0).flatten(1).any(1)
+            if not bool(left.any()):
+                return
+        winners = (remaining > 0.0) & (
+            remaining == _maxpool_separable(remaining, dist_thresh)
+        )
+        yield winners, left
+        dead = _maxpool_separable(winners.float(), dist_thresh) > 0.0
+        remaining = torch.where(dead, 0.0, remaining)
+
+
 def grid_nms_plain(
     scores: torch.Tensor, dist_thresh: int, num_iters: int = 0
 ) -> torch.Tensor:
@@ -75,26 +132,28 @@ def grid_nms_plain(
     until no candidate is left (exact greedy at any chain depth, capped at
     H*W rounds); a positive value runs that many rounds.
     """
-    remaining = nms_priority_key(scores, dist_thresh)
     keep = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
-    cap = num_iters if num_iters > 0 else scores.shape[-2] * scores.shape[-1]
-    for _ in range(cap):
-        if num_iters == 0 and not bool((remaining > 0.0).any()):
-            break
-        winners = (remaining > 0.0) & (
-            remaining == _maxpool_separable(remaining, dist_thresh)
-        )
+    for winners, _ in _plain_loop(scores, dist_thresh, num_iters):
         keep |= winners
-        dead = _maxpool_separable(winners.float(), dist_thresh) > 0.0
-        remaining = torch.where(dead, 0.0, remaining)
     return torch.where(keep, scores, 0.0)
+
+
+def plain_rounds(scores: torch.Tensor, dist_thresh: int) -> list:
+    """Each frame's rounds in `grid_nms_plain`'s loop to convergence: what
+    the kernel reports in ``grid_nms_cuda.last_rounds``."""
+    rounds = torch.zeros(scores.shape[0], dtype=torch.int64, device=scores.device)
+    for _, left in _plain_loop(scores, dist_thresh, 0):
+        rounds += left
+    return rounds.tolist()
 
 
 def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
     """The NMS kernel on a CUDA tensor, its plain version on a CPU one.
 
-    ``grid_nms_cuda.launches`` counts kernel runs; ``last_rounds`` holds the
-    suppression rounds of the latest run.
+    ``grid_nms_cuda.launches`` counts kernel runs.  ``last_rounds`` is the
+    latest run's ``(B,)`` int32 device tensor of suppression rounds a frame;
+    it is written on the stream, so read it after a synchronise.  Nothing is
+    read back on the host.
     """
     if not scores.is_cuda:
         return grid_nms_plain(scores, dist_thresh)
@@ -105,24 +164,41 @@ def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
         raise ValueError("the NMS kernel supports 0 <= dist_thresh <= 7")
     scores = scores.contiguous()
     b, h, w = scores.shape
+    layout = nms_layout(h, w, dist_thresh)
     lib = load_library("grid_nms", _SIGNATURES)
     out = torch.empty_like(scores)
-    rem = torch.empty_like(scores)
-    win = torch.empty(scores.shape, dtype=torch.uint8, device=scores.device)
-    keep = torch.empty_like(win)
-    flag = torch.empty(1, dtype=torch.int32, device=scores.device)
-    rounds = ctypes.c_int(0)
+    rounds = torch.empty(b, dtype=torch.int32, device=scores.device)
+    if h * w == 0:
+        rounds.zero_()
+    key = flag = None
+    if not layout.band_in_shared:
+        scratch = torch.empty(_STATE_BYTES * scores.numel(), dtype=torch.uint8,
+                              device=scores.device)
+        key = scratch.data_ptr()
+        flag = key + 4 * scores.numel()
     with torch.cuda.device(scores.device):
         err = lib.grid_nms_launch(
-            scores.data_ptr(), out.data_ptr(), rem.data_ptr(), win.data_ptr(),
-            keep.data_ptr(), flag.data_ptr(), b, h, w, int(dist_thresh),
-            ctypes.byref(rounds), stream_of(scores),
+            scores.data_ptr(), out.data_ptr(), key, flag, rounds.data_ptr(),
+            b, h, w, int(dist_thresh), layout.cluster, int(layout.band_in_shared),
+            stream_of(scores),
         )
     check_launch(err, "grid_nms_launch")
     grid_nms_cuda.launches += 1
-    grid_nms_cuda.last_rounds = rounds.value
+    grid_nms_cuda.last_rounds = rounds
     return out
 
 
 grid_nms_cuda.launches = 0
-grid_nms_cuda.last_rounds = 0
+grid_nms_cuda.last_rounds = None
+
+
+def max_active_clusters(h: int, w: int, dist_thresh: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the kernel's launch on
+    ``(H, W)`` maps (current device): how many frames run at once."""
+    layout = nms_layout(h, w, dist_thresh)
+    lib = load_library("grid_nms", _SIGNATURES)
+    count = ctypes.c_int(0)
+    check_launch(lib.grid_nms_max_active_clusters(
+        h, w, int(dist_thresh), layout.cluster, int(layout.band_in_shared),
+        ctypes.byref(count)), "grid_nms_max_active_clusters")
+    return count.value

@@ -5,9 +5,14 @@ fixtures, so it runs on a CUDA machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
-Without a card every test skips.  Tolerances: decode within 1e-6 of its
-plain version (``expf`` against PyTorch's ``exp``, same float32 order of
-the 65-way sum up to a few ulps), NMS exactly (float compare and max only),
+Without a card every test skips.  NMS runs small maps (a few listed
+(row, strip) pairs a pass: the direct mode), dense 480x642 and 1081x1922
+maps (the ring mode, scalar loads for W % 4 != 0), 1080x1920 (the state in
+device memory), 33 frames, and r = 0..7; its rounds a frame, a device
+tensor, are held against the plain loop's.  Tolerances: decode within 1e-6
+of its plain version (``expf`` against PyTorch's ``exp``, same float32
+order of the 65-way sum up to a few ulps), NMS exactly (float compare and
+max only),
 the descriptor loss as the JAX package's own kernel test
 (`tests/test_pallas.py:49-62`): value rtol 2e-5, gradients atol 2e-6 +
 rtol 2e-4 (the D-long dot products and the N-long sums run in another order
@@ -34,6 +39,8 @@ from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
 from feature_point_cnn_tpu_torch.ops.kernels.nms import (
     grid_nms_cuda,
     grid_nms_plain,
+    nms_layout,
+    plain_rounds,
 )
 
 
@@ -49,7 +56,7 @@ def _cuda(a: np.ndarray) -> torch.Tensor:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 60, 80), (1, 9, 11)])
+@pytest.mark.parametrize("shape", [(2, 60, 80), (1, 9, 11), (32, 60, 80)])
 def test_decode_kernel_matches_plain(rng, shape):
     logits = _cuda(rng.standard_normal((*shape, 65)) * 4)
     logits[0, 0, 0] = 300.0          # extreme but finite logits
@@ -77,7 +84,40 @@ def test_nms_kernel_matches_plain_exactly(rng, density):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dist", [0, 1, 7])
+@pytest.mark.parametrize("shape", [(1, 1080, 1920), (33, 64, 96), (2, 37, 50)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_nms_kernel_large_and_many_frames(rng, shape):
+    """1080x1920 keeps its bands in the device-memory scratch; 33 frames are
+    more clusters than some launches hold at once; 37x50 has uneven bands
+    and rows that are not whole 16 B."""
+    vals = rng.random(shape).astype(np.float32) * 0.9 + 0.05
+    vals[rng.random(shape) >= 0.05] = 0.0
+    scores = _cuda(vals)
+    assert nms_layout(shape[1], shape[2], 4).band_in_shared == (shape[1] < 1000)
+    got = grid_nms_cuda(scores, 4)
+    assert torch.equal(got, grid_nms_plain(scores, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dist", [((1, 480, 642), 0), ((1, 480, 642), 1),
+                                        ((1, 480, 642), 7), ((1, 1081, 1922), 4)],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_nms_kernel_dense_maps_walk_the_ring(rng, shape, dist):
+    """Dense maps list more active (row, strip) pairs than the direct mode
+    takes, so the passes walk the register ring; W % 4 == 2 takes the
+    scalar loads, in shared memory and in the device-memory scratch."""
+    vals = rng.random(shape).astype(np.float32) * 0.9 + 0.05
+    vals[rng.random(shape) >= 0.3] = 0.0
+    scores = _cuda(vals)
+    got = grid_nms_cuda(scores, dist)
+    rounds = grid_nms_cuda.last_rounds
+    assert torch.equal(got, grid_nms_plain(scores, dist))
+    torch.cuda.synchronize()
+    assert rounds.tolist() == plain_rounds(scores, dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", list(range(8)))
 def test_nms_kernel_ramp_and_plateaus(rng, dist):
     h, w = 64, 96
     ramp = np.arange(h * w, dtype=np.float32).reshape(h, w) / (h * w) * 0.9 + 0.05
@@ -86,8 +126,12 @@ def test_nms_kernel_ramp_and_plateaus(rng, dist):
     plate[::2, 50::2] = 0.9
     scores = _cuda(np.stack([ramp, plate, np.full((h, w), 0.015, np.float32)]))
     got = grid_nms_cuda(scores, dist)
+    rounds = grid_nms_cuda.last_rounds
     assert torch.equal(got, grid_nms_plain(scores, dist))
-    assert grid_nms_cuda.last_rounds >= 1
+    # the rounds are a device tensor, read after a synchronise
+    assert rounds.is_cuda and rounds.dtype == torch.int32
+    torch.cuda.synchronize()
+    assert rounds.tolist() == plain_rounds(scores, dist)
 
 
 @pytest.mark.cuda

@@ -163,15 +163,15 @@ def test_decode_gate_on_cpu_matches_prob_path():
 
 
 def test_port_imports_no_jax():
-    """Importing every port module and chip_smoke pulls in neither JAX nor
-    the JAX package."""
+    """Importing every port module, chip_smoke and bench_torch_nms pulls in
+    neither JAX nor the JAX package."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "feature_point_cnn_tpu_torch").rglob("*.py")
     )
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'bench_torch_nms']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'feature_point_cnn_tpu')]\n"

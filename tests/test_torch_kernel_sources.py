@@ -138,3 +138,57 @@ def test_shapes_in_use_are_within_the_kernels_limit():
                    (195, 8), (16, 8), (1200, 128), (4800, 64), (140, 12),
                    (135, 100)):
         assert 1 <= dim <= k["kMaxDim"] and n >= 1
+
+
+def test_nms_source_has_no_host_round_trip():
+    """One launch a call: the convergence loop runs on the device, so the
+    launcher neither synchronises nor copies anything back."""
+    text = (CSRC / "grid_nms.cu").read_text()
+    for call in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy"):
+        assert call not in text, call
+    assert "cudaLaunchKernelEx" in text and "cudaLaunchAttributeClusterDimension" in text
+    assert text.count("<<<") == 0          # the cluster launch is the only one
+
+
+def test_nms_layout_follows_the_source():
+    text = (CSRC / "grid_nms.cu").read_text()
+    assert nms._MAX_CLUSTER == _constant(text, "kMaxCluster")
+    assert nms._SMEM_LIMIT == _constant(text, "kSmemLimit") == 232448
+    assert nms._SMEM_RESERVE == _constant(text, "kSmemReserve")
+    assert nms._STRIP == 32 * _constant(text, "kGroup")
+    assert "constexpr int kStrip = 32 * kGroup;" in text
+    # the source's shared-memory formula, term by term
+    assert "(4 * static_cast<size_t>(rows) * strips_of(w) + 15) / 16 * 16" in text
+    assert "(in_shared ? 5 * static_cast<size_t>(rows) * w : 0)" in text
+    assert nms._STATE_BYTES == 5
+    # the source's rule for the cluster size: bands at least max(r, 1) rows
+    assert "h / cluster < (R > 0 ? R : 1)" in text
+
+
+def _decode_source():
+    text = (CSRC / "decode_threshold.cu").read_text()
+    return text, {k: _constant(text, k) for k in
+                  ("kCell", "kThreads", "kSegCells", "kTilePad", "kBarBytes")}
+
+
+def test_decode_cell_rows_follow_the_source():
+    text, k = _decode_source()
+    assert decode._SEG_CELLS == k["kSegCells"] == 80    # one 640-px cell row a block
+    assert decode._TILE_PAD == k["kTilePad"]
+    assert decode._BAR_BYTES == k["kBarBytes"]
+    assert "constexpr int kChannels = kCell * kCell + 1;" in text
+    assert decode._CHANNELS == k["kCell"] ** 2 + 1
+    assert "const int bulk = wc % 4 == 0" in text
+    m = re.search(r"size_t segment_smem_bytes\(int seg\) \{\s*return (.*?);", text, re.S)
+    expr = m.group(1).replace("static_cast<size_t>", "").replace("round4", "_round4")
+    env = dict(k, kChannels=k["kCell"] ** 2 + 1, _round4=lambda n: (n + 3) // 4 * 4)
+    for wc in (1, 2, 11, 80, 160, 240):
+        lay = decode.cell_row_layout(wc)
+        seg = min(wc, k["kSegCells"])
+        assert lay["seg"] == seg and lay["nseg"] == -(-wc // seg)
+        assert lay["smem_bytes"] == eval(f"({expr})", {"__builtins__": {}}, dict(env, seg=seg))
+        assert lay["smem_bytes"] <= 48 * 1024       # no opt-in attribute needed
+        assert lay["bulk"] == (wc % 4 == 0)
+        # a segment's logits are whole 16 B runs when they arrive by bulk copy
+        if lay["bulk"]:
+            assert seg * 65 * 4 % 16 == 0 and k["kSegCells"] % 4 == 0
