@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, training, self-labeling and evaluation
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -46,13 +46,35 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    descriptor head alone; a joint step with the kernel gate off gives the
    same loss (rtol 1e-4);
 8. training timing: ms/step with the gate on and off, its parts, a traced
-   window of 3 steps, peak memory.
+   window of 3 steps, peak memory;
+9. self-labeling: 64 polygon scenes written as 24-bit BMPs at 480x640 and
+   labelled by `preprocess_folder` with the MagicPoint snapshot, bf16,
+   ``HomographyConfig.for_preprocess()`` (15 warps), batch 16, 240x320: 64
+   items of finite in-frame points; decode launched twice a batch and NMS
+   once; shards 0/2 and 1/2 equal to the single run bit for bit; one batch
+   through the adaptation stages (each timed, ending in a synchronise) equal
+   to the written labels; the decode gate on and off give aggregated maps
+   within 1e-5, and the NMS kernel equals plain NMS on that map exactly; a
+   traced batch shows both kernels; images/s, busy share, peak memory; both
+   kernels at the self-labeling shapes against their plain versions;
+10. evaluation: `evaluate_pairs` on 16 scenes at 240x320, K = 512, with the
+   released weights under the default and the mild homography family
+   (every metric finite but cv2's, decode and NMS once an extract); the
+   card's float32 run against the port's CPU run on 4 pairs (within 0.02 on
+   repeatability and matching score); RANSAC on the card on exact
+   correspondences (< 0.1 px); a 2-sequence HPatches layout written as PPM
+   (repeatability 1.0 on its identity sequence).
 
 The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
 and under ``b32`` at B = 32, the kernel's device time from a trace
 (``device_ms``), CUDA events over back-to-back calls (``ms``, warm) and
 around single calls after a 256 MB write (``cold_ms``); the bound is held
 against ``cold_ms``.
+Their ``launches`` count the serving path's calls; ``launches_selflabel``
+and ``launches_eval`` those of phases 9 and 10, each counted from 0 just
+before its path, and ``selflabel_shape`` the kernel at the self-labeling
+shape (decode at threshold 0 on the 240 warped views, NMS on the 16
+aggregated maps).
 
 It prints a ``{"kernels": [...]}`` line, the card's line again, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 and
@@ -69,6 +91,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -135,6 +158,45 @@ def polygon_scene(rng: np.random.Generator, h: int, w: int,
             corners = np.concatenate([corners[~covered], new])
     img = np.clip(img, 0.0, 1.0).astype(np.float32)
     return (img, corners) if return_points else img
+
+
+def write_bmp(path, rgb: np.ndarray) -> None:
+    """An ``(h, w, 3)`` uint8 RGB image as an uncompressed 24-bit BMP."""
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)     # bottom-up BGR
+    header = (b"BM" + (54 + rows.size).to_bytes(4, "little") + bytes(4)
+              + (54).to_bytes(4, "little") + (40).to_bytes(4, "little")
+              + w.to_bytes(4, "little") + h.to_bytes(4, "little")
+              + (1).to_bytes(2, "little") + (24).to_bytes(2, "little")
+              + bytes(4) + rows.size.to_bytes(4, "little") + bytes(16))
+    with open(path, "wb") as f:
+        f.write(header + rows.tobytes())
+
+
+def write_ppm(path, rgb: np.ndarray) -> None:
+    """An ``(h, w, 3)`` uint8 RGB image as a binary PPM (P6)."""
+    h, w, _ = rgb.shape
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode() + np.ascontiguousarray(rgb).tobytes())
+
+
+def exact_correspondences(seed: int, k: int = 200, outliers: float = 0.3):
+    """``(pts1, pts2, valid, h_flat)``: ``k`` ``(y, x)`` points of a 240x320
+    view 1 and their exact images under a mild homography in view 2 (``pts1
+    = H pts2`` with ``h_flat`` output->input), a share ``outliers`` of them
+    moved at random, and all valid."""
+    rng = np.random.default_rng(seed)
+    h_mat = np.array([[1.05, 0.03, 6.0], [-0.02, 0.97, -4.0], [2e-4, -1e-4, 1.0]])
+    pts2_xy = rng.uniform([10, 10], [310, 230], (k, 2))
+    p = np.concatenate([pts2_xy, np.ones((k, 1))], 1) @ h_mat.T
+    pts1_xy = p[:, :2] / p[:, 2:]
+    bad = rng.random(k) < outliers
+    pts1_xy[bad] = rng.uniform([0, 0], [320, 240], (int(bad.sum()), 2))
+    h_flat = (h_mat.reshape(9) / h_mat[2, 2])[:8].astype(np.float32)
+    return (pts1_xy[:, ::-1].astype(np.float32), pts2_xy[:, ::-1].astype(np.float32),
+            np.ones(k, bool), h_flat)
 
 
 class SceneDataset:
@@ -208,7 +270,8 @@ def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
     """Trace ``calls`` runs of ``fn()`` after 3 untraced ones: the device's
     busy share of the wall time and the time by kernel, per ``unit`` (a call
     holds ``per_call`` of them); with ``named``, also the time and launches
-    of the kernels whose names hold one of those strings."""
+    of the kernels whose names hold one of those strings.  Returns the wall
+    and device ms of the window and each named kernel's launches a call."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -242,6 +305,9 @@ def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
               f"ms/{unit} in {sum(e.count for _, e in mine) // calls} launches: " +
               ", ".join(f"{name} {e.self_device_time_total / 1e3 / calls / per_call:.4f}"
                         for name, e in mine))
+    return dict(wall_ms=wall_ms, device_ms=dev_ms,
+                launches={k: sum(e.count for name, e in mine if k in name) // calls
+                          for k in named})
 
 
 def trace_device(fn, calls: int = 3) -> dict:
@@ -330,6 +396,334 @@ def nms_inputs(decoded: torch.Tensor, seed: int):
         vals[rng.random(shape, dtype=np.float32) >= 0.05] = 0.0
         out[name] = torch.from_numpy(vals).to(dev)
     return out
+
+
+SL_IMAGES = 64        # scenes labelled in phase 9: 4 batches of 16
+SL_BATCH = 16
+SL_SRC = (480, 640)   # their size on disk, cropped to the training size
+EVAL_PAIRS = 16       # drawn scenes of phase 10, one warped pair each
+
+
+def kernel_shape_row(kind: str, x: torch.Tensor, threshold: float, nms_dist: int,
+                     cell: int = 8) -> dict:
+    """A kernel at a new path's shape: events ms back to back, its plain
+    version's, the bound (bytes over 3.35 TB/s or operations over the float32
+    peak, as rows 1-2 count them), and max |kernel - plain|."""
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import (
+        decode_threshold_cuda, decode_threshold_plain)
+    from feature_point_cnn_tpu_torch.ops.kernels.nms import (
+        grid_nms_cuda, grid_nms_plain, plain_rounds)
+
+    if kind == "decode":
+        fn = lambda: decode_threshold_cuda(x, cell, threshold)
+        plain = lambda: decode_threshold_plain(x, cell, threshold)
+        b, hc, wc, _ = x.shape
+        nbytes = x.numel() * 4 + b * hc * wc * cell * cell * 4
+        ops = x.numel() * 5
+    else:
+        fn = lambda: grid_nms_cuda(x, nms_dist)
+        plain = lambda: grid_nms_plain(x, nms_dist)
+        nbytes = 2 * x.numel() * 4
+        ops = sum(plain_rounds(x, nms_dist)) * x.shape[1] * x.shape[2] * (8 * nms_dist + 4)
+    err = float((fn() - plain()).abs().max())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    row = dict(shape=list(x.shape), max_abs_err=err, ms=event_ms(fn, 20),
+               plain_ms=event_ms(plain, 5), bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return row
+
+
+def selflabel_phase(seed: int, card: str) -> dict:
+    """Phase 9: self-labeling through `preprocess_folder` at full width."""
+    from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
+    from feature_point_cnn_tpu_torch.inference.wrapper import (
+        SuperPointFrontend, adaptation_fn, adaptation_prob_fn)
+    from feature_point_cnn_tpu_torch.ops import kernels
+    from feature_point_cnn_tpu_torch.ops.detection import (
+        extract_keypoints, keypoints_to_numpy)
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
+    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda, grid_nms_plain
+    from feature_point_cnn_tpu_torch.selflabel.adaptation import (
+        sample_warps, unwarp_and_aggregate, warp_masks, warp_views)
+    from feature_point_cnn_tpu_torch.geometry.homography import erode
+    from feature_point_cnn_tpu_torch.selflabel.coco import (
+        item_generator, load_and_crop, preprocess_folder)
+    from feature_point_cnn_tpu_torch.utils.weights import released_path
+
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = SuperPointConfig()
+    homo = HomographyConfig.for_preprocess()
+    bsz = SL_BATCH
+    weights = str(Path(released_path()).parent / "magicpoint_synth_r3.npz")
+    fe = SuperPointFrontend(cfg, weights_path=weights, device="cuda")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_selflabel_", dir=str(kernels.BUILD_DIR)))
+    img_dir = work / "images"
+    img_dir.mkdir()
+    rng = np.random.default_rng(seed + 90)
+    t0 = time.perf_counter()
+    for i in range(SL_IMAGES):
+        g = (polygon_scene(rng, *SL_SRC) * 255).round().astype(np.uint8)
+        write_bmp(img_dir / f"scene_{i:03d}.bmp",
+                  np.stack([g, np.roll(g, 3, 1), g[::-1]], -1))
+    print(f"selflabel data: {SL_IMAGES} 24-bit BMPs {SL_SRC[0]}x{SL_SRC[1]} written "
+          f"in {time.perf_counter() - t0:.2f} s; weights {Path(weights).name}, "
+          f"compute {cfg.compute_dtype}, num {homo.num}, batch {bsz}, "
+          f"{cfg.train_image_size[0]}x{cfg.train_image_size[1]}")
+
+    # the main path: counts set to 0, preprocess_folder, counts read; each
+    # batch's start is stamped (a call returns host arrays, so it has synced)
+    decode_threshold_cuda.launches = 0
+    grid_nms_cuda.launches = 0
+    stamps = []
+    run = fe.run_with_homography_adaptation
+
+    def stamped(*a, **k):
+        stamps.append(time.perf_counter())
+        return run(*a, **k)
+
+    fe.run_with_homography_adaptation = stamped
+    single = work / "single"
+    t0 = time.perf_counter()
+    written = preprocess_folder(fe, str(img_dir), str(single), homo, batch_size=bsz,
+                                seed=seed)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    total_s = stamps[-1] - t0
+    del fe.run_with_homography_adaptation
+    launches = {"decode_threshold": decode_threshold_cuda.launches,
+                "grid_nms": grid_nms_cuda.launches}
+    n_batches = -(-SL_IMAGES // bsz)
+    periods = np.diff(stamps)
+    rate = bsz / float(np.median(periods[1:]))
+    print(f"selflabel main path: {written} items in {total_s:.3f} s, {n_batches} batches, "
+          f"launches {launches}; batch periods {[round(float(x), 4) for x in periods]} s; "
+          f"{rate:.2f} images/s (median after the first batch) [{card}]")
+    check(written == SL_IMAGES, f"{SL_IMAGES} items written")
+    check(launches == {"decode_threshold": 2 * n_batches, "grid_nms": n_batches},
+          "decode launched twice a batch and NMS once")
+
+    items = {}
+    th, tw = cfg.train_image_size
+    for f in sorted(single.glob("*.npz")):
+        with np.load(f) as z:
+            items[f.name] = (z["image"], z["points"])
+    check(len(items) == SL_IMAGES, "every item on disk")
+    n_pts = []
+    for name, (image, pts) in items.items():
+        check(image.shape == (3, th, tw) and image.dtype == np.float32, f"{name} image")
+        check(pts.ndim == 2 and pts.shape[0] == 3 and bool(np.isfinite(pts).all()),
+              f"{name}: finite (3, N) points")
+        check(bool(((pts[0] >= 0) & (pts[0] <= tw - 1) & (pts[1] >= 0)
+                    & (pts[1] <= th - 1) & (pts[2] > 0)).all()), f"{name}: points in the frame")
+        n_pts.append(pts.shape[1])
+    print(f"selflabel items: points an item median {float(np.median(n_pts)):.1f} "
+          f"(min {min(n_pts)}, max {max(n_pts)})")
+    check(min(n_pts) > 0, "every item has points")
+
+    # shards 0/2 and 1/2 label as the single run, bit for bit
+    sharded = work / "sharded"
+    n_sh = [preprocess_folder(fe, str(img_dir), str(sharded), homo, batch_size=bsz,
+                              seed=seed, shard_index=k, num_shards=2) for k in (0, 1)]
+    same = 0
+    for name, (image, pts) in items.items():
+        with np.load(sharded / name) as z:
+            same += int(np.array_equal(z["image"], image) and np.array_equal(z["points"], pts))
+    print(f"selflabel shards: {n_sh} items, {same}/{len(items)} equal to the single run")
+    check(same == len(items), "shards 0/2 and 1/2 give the single run's labels")
+
+    # one batch through the stages, each ended by a synchronise
+    paths = sorted(str(p_) for p_ in img_dir.iterdir())[:bsz]
+    batch = np.stack([load_and_crop(p_, (th, tw)) for p_ in paths])
+    imgs = torch.from_numpy(batch).cuda()
+    gens = lambda: [item_generator(seed, gi) for gi in range(bsz)]
+    prob_fn = adaptation_prob_fn(fe.model, cfg)
+    parts = {k: [] for k in ("sample", "masks_and_erosion", "warps", "forwards",
+                             "unwarp_and_aggregate", "nms_and_topk", "host_write")}
+    erosion = []
+    out_dir = work / "parts"
+    out_dir.mkdir()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    with torch.inference_mode():
+        for _ in range(6):
+            hs = timed("sample", lambda: sample_warps(gens(), bsz, (th, tw), homo, imgs.device))
+            mask, count, hs_inv = timed(
+                "masks_and_erosion",
+                lambda: warp_masks(hs, (th, tw), homo.valid_border_margin))
+            warped = timed("warps", lambda: warp_views(imgs, hs))
+            base, probs = timed("forwards", lambda: (prob_fn(imgs), prob_fn(warped)))
+            agg = timed("unwarp_and_aggregate", lambda: unwarp_and_aggregate(
+                base, probs, mask, count, hs_inv, homo))
+            pts = timed("nms_and_topk", lambda: [
+                keypoints_to_numpy(kp_, i) for kp_ in [extract_keypoints(agg, cfg)]
+                for i in range(bsz)])
+            t1 = time.perf_counter()
+            for j in range(bsz):
+                np.savez_compressed(out_dir / f"{j}.npz",
+                                    image=np.transpose(batch[j], (2, 0, 1)), points=pts[j])
+            parts["host_write"].append((time.perf_counter() - t1) * 1e3)
+            ones = torch.ones((hs.shape[0] * bsz, th, tw), device=imgs.device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            erode(ones, homo.valid_border_margin)
+            erode(ones, homo.valid_border_margin)
+            torch.cuda.synchronize()
+            erosion.append((time.perf_counter() - t1) * 1e3)
+        whole = adaptation_fn(fe.model, imgs, gens(), cfg, homo)
+    check(torch.equal(agg, whole), "the timed stages compose to adaptation_fn's map")
+    first = sorted(items)[:bsz]
+    check(all(np.array_equal(pts[j], items[name][1]) for j, name in enumerate(first)),
+          "the timed stages give the first batch's written labels")
+    with torch.inference_mode():
+        maps = {gate: adaptation_fn(fe.model, imgs, gens(), cfg.replace(use_cuda_decode=gate),
+                                    homo) for gate in ("on", "off")}
+    med = {k: float(np.median(v[1:])) for k, v in parts.items()}
+    total = sum(med.values())
+    print("selflabel batch parts (each ended by a synchronise, median of 5 after one): " +
+          ", ".join(f"{k} {v:.3f} ms ({v / total:.3f})" for k, v in med.items()) +
+          f"; sum {total:.3f} ms ({1e3 * bsz / total:.2f} images/s); of the masks, the "
+          f"two erosions of {hs.shape[0] * bsz} masks {float(np.median(erosion[1:])):.3f} ms "
+          f"[{card}]")
+    gate_err = float((maps["on"] - maps["off"]).abs().max())
+    print(f"selflabel gates on vs off: aggregated maps max|diff| {gate_err:.3g}")
+    check(gate_err <= 1e-5, "aggregated maps with the decode gate on and off agree to 1e-5")
+    scores = torch.where(maps["on"] >= cfg.confidence_thresh, maps["on"], 0.0)
+    check(torch.equal(grid_nms_cuda(scores, cfg.nms_dist),
+                      grid_nms_plain(scores, cfg.nms_dist)),
+          "the NMS kernel equals plain grid_nms on the aggregated map")
+
+    # one traced batch: both kernels, the device's busy share; peak memory
+    torch.cuda.reset_peak_memory_stats()
+    trace = prof_window(lambda: fe.run_with_homography_adaptation(batch, homo, gens()),
+                        1, bsz, "selflabel batch", "image", card,
+                        named=("decode_row_kernel", "grid_nms_kernel"))
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    print(f"selflabel trace: launches a batch {trace['launches']}, device busy share "
+          f"{trace['device_ms'] / trace['wall_ms']:.3f}, peak memory {peak_mb:.0f} MiB [{card}]")
+    check(trace["launches"] == {"decode_row_kernel": 2, "grid_nms_kernel": 1},
+          "a traced batch shows 2 decode and 1 NMS launches")
+
+    with torch.inference_mode():
+        logits240, _ = fe.model.features(warp_views(imgs, sample_warps(
+            gens(), bsz, (th, tw), homo, imgs.device)), enable_descriptor=False)
+    shapes = {"decode_threshold": kernel_shape_row("decode", logits240, 0.0, cfg.nms_dist),
+              "grid_nms": kernel_shape_row("nms", scores, cfg.confidence_thresh, cfg.nms_dist)}
+    for name, r in shapes.items():
+        print(f"selflabel kernel {name} {r['shape']}: {r['ms']:.4f} ms vs plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"max|diff| {r['max_abs_err']:.3g} [{card}]")
+        check(r["max_abs_err"] <= (1e-6 if name == "decode_threshold" else 0.0),
+              f"{name} at the self-labeling shape against its plain version")
+        check(r["ms"] >= r["bound_ms"], f"{name}: not under its bound")
+    shutil.rmtree(work)
+    del fe, imgs, logits240, maps, scores
+    torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=shapes)
+
+
+def eval_phase(seed: int, card: str) -> dict:
+    """Phase 10: the two-view evaluation harness with the released weights."""
+    from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
+    from feature_point_cnn_tpu_torch.eval.benchmark import evaluate_pairs
+    from feature_point_cnn_tpu_torch.eval.hpatches import evaluate_hpatches
+    from feature_point_cnn_tpu_torch.geometry.homography import flat2mat, warp_points
+    from feature_point_cnn_tpu_torch.geometry.warp import warp_image
+    from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+    from feature_point_cnn_tpu_torch.ops import kernels
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
+    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
+    from feature_point_cnn_tpu_torch.slam.twoview import ransac_homography
+    from feature_point_cnn_tpu_torch.utils.weights import released_path
+
+    torch.backends.cudnn.allow_tf32 = True
+    weights = released_path()
+    cfg = SuperPointConfig(max_keypoints=512)
+    fe = SuperPointFrontend(cfg, weights_path=weights, device="cuda")
+    rng = np.random.default_rng(seed + 100)
+    th, tw = cfg.train_image_size
+    imgs = [np.repeat(polygon_scene(rng, th, tw)[..., None], 3, -1) for _ in range(EVAL_PAIRS)]
+    families = {"default": HomographyConfig(),
+                "mild": HomographyConfig(patch_ratio=0.8, max_angle=np.pi / 6)}
+    launches = {"decode_threshold": 0, "grid_nms": 0}
+    for name, homo in families.items():
+        decode_threshold_cuda.launches = 0
+        grid_nms_cuda.launches = 0
+        t0 = time.perf_counter()
+        agg = evaluate_pairs(fe, imgs, homo, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"decode_threshold": decode_threshold_cuda.launches,
+               "grid_nms": grid_nms_cuda.launches}
+        for k in launches:
+            launches[k] += got[k]
+        print(f"eval {name} family ({Path(weights).name}, {th}x{tw}, K = 512, "
+              f"{EVAL_PAIRS} pairs, {1e3 * wall / EVAL_PAIRS:.1f} ms a pair) [{card}]: "
+              + json.dumps({k: round(v, 6) for k, v in agg.items()}))
+        check(got == {"decode_threshold": 2 * EVAL_PAIRS, "grid_nms": 2 * EVAL_PAIRS},
+              f"eval {name}: decode and NMS once an extract ({got})")
+        bad = [k for k, v in agg.items()
+               if not np.isfinite(v) and k != "homography_error_cv2"]
+        check(not bad, f"eval {name}: finite metrics (not {bad})")
+
+    # the card's float32 run (TF32 off) against the port's CPU plain run
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(compute_dtype="float32")
+    mild = families["mild"]
+    fe_cuda = SuperPointFrontend(cfg32, weights_path=weights, device="cuda")
+    fe_cpu = SuperPointFrontend(cfg32, weights_path=weights, device="cpu")
+    on_card = evaluate_pairs(fe_cuda, imgs[:4], mild, seed=seed)
+    on_cpu = evaluate_pairs(fe_cpu, imgs[:4], mild, seed=seed)
+    torch.backends.cudnn.allow_tf32 = True
+    diffs = {k: abs(on_card[k] - on_cpu[k]) for k in ("repeatability", "matching_score")}
+    print(f"eval float32 card vs CPU plain over 4 pairs: " + ", ".join(
+        f"{k} {on_card[k]:.4f} vs {on_cpu[k]:.4f}" for k in diffs))
+    check(all(d <= 0.02 for d in diffs.values()),
+          "card and CPU agree within 0.02 on repeatability and matching score")
+    del fe_cuda, fe_cpu
+
+    # RANSAC on the card on the exact correspondences of the CPU test
+    p1, p2, valid, h_true = exact_correspondences(0)
+    est = ransac_homography(torch.Generator().manual_seed(0), torch.from_numpy(p1).cuda(),
+                            torch.from_numpy(p2).cuda(), torch.from_numpy(valid).cuda())
+    corners = torch.tensor([[0, 0], [0, tw - 1], [th - 1, tw - 1], [th - 1, 0]],
+                           dtype=torch.float32)
+    c_err = float((warp_points(corners, est.h_flat.cpu())
+                   - warp_points(corners, torch.from_numpy(h_true))).norm(dim=-1).mean())
+    print(f"eval ransac on the card: corner error {c_err:.3g} px, "
+          f"{int(est.num_inliers)} inliers of {len(p1)}")
+    check(c_err < 0.1, "RANSAC on the card recovers the exact correspondences to 0.1 px")
+
+    # a 2-sequence HPatches layout written as PPM with numpy
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_hpatches_", dir=str(kernels.BUILD_DIR)))
+    base = (polygon_scene(rng, 480, 640) * 255).round().astype(np.uint8)
+    base3 = np.repeat(base[..., None], 3, -1)
+    (root / "i_scene").mkdir()
+    for k in (1, 2, 3):
+        write_ppm(root / "i_scene" / f"{k}.ppm", base3)
+        if k > 1:
+            np.savetxt(root / "i_scene" / f"H_1_{k}", np.eye(3))
+    (root / "v_scene").mkdir()
+    h_flat = torch.tensor([1.02, 0.03, -12.0, -0.02, 0.99, 8.0, 2e-5, -1e-5])
+    warped = warp_image(torch.from_numpy(base3).float(), h_flat)
+    write_ppm(root / "v_scene" / "1.ppm", base3)
+    write_ppm(root / "v_scene" / "2.ppm", warped.round().clamp(0, 255).to(torch.uint8).numpy())
+    np.savetxt(root / "v_scene" / "H_1_2", torch.linalg.inv(flat2mat(h_flat.double())).numpy())
+    hp = evaluate_hpatches(fe, str(root), (th, tw))
+    shutil.rmtree(root)
+    print("eval hpatches layout: " + json.dumps(
+        {s: {k: round(v, 6) for k, v in a.items()} for s, a in hp.items()}))
+    check(hp["illumination"]["pairs"] == 2.0
+          and abs(hp["illumination"]["repeatability"] - 1.0) < 1e-6,
+          "the identity sequence has repeatability 1.0")
+    check(hp["viewpoint"]["pairs"] == 1.0, "the viewpoint pair ran")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -893,6 +1287,18 @@ def main(argv=None) -> int:
         if "b32" in r:
             check(r["b32"][timed] >= r["b32"]["bound_ms"],
                   f"{r['name']} B = 32: {timed} not under its bound")
+    del d_req, wd_req, v_k, v_p, d_t, wd_t, desc2, batch_t
+    torch.cuda.empty_cache()
+
+    # ---- 9. self-labeling -------------------------------------------------
+    sl = selflabel_phase(args.seed, card)
+
+    # ---- 10. two-view evaluation ------------------------------------------
+    ev = eval_phase(args.seed, card)
+    for r in rows[:2]:
+        r["launches_selflabel"] = sl["launches"][r["name"]]
+        r["launches_eval"] = ev[r["name"]]
+        r["selflabel_shape"] = sl["shapes"][r["name"]]
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

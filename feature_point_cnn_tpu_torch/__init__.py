@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of the SuperPoint serving and training paths, for one
-NVIDIA H100.
+"""PyTorch/CUDA port of the SuperPoint serving, training, self-labeling and
+two-view evaluation paths, for one NVIDIA H100.
 
 The JAX package `feature_point_cnn_tpu` is the reference; this package
 imports none of it (nor JAX) and keeps its own copies of what it needs.

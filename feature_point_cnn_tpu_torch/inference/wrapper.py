@@ -1,21 +1,22 @@
 """Serving front end: image batch -> keypoints + descriptors (+ matches).
 
 Port of `feature_point_cnn_tpu/inference/wrapper.py`: `extract_fn`
-(`:33-66`), `SuperPointFrontend.extract`/`run` (`:134-184`), and the packed
-frame program of ``export_pjrt`` (input prep `:298-307`, frame `:351-387`)
-as `SuperPointFrontend.frame`.  PyTorch runs eagerly, so there is nothing
-to export: the frame program is a method.  StableHLO/PJRT export, sharded
-extraction and homography adaptation are not ported yet.
+(`:33-66`), `adaptation_fn` (`:69-74`), `SuperPointFrontend.extract`/`run`/
+`run_with_homography_adaptation` (`:134-199`), and the packed frame program
+of ``export_pjrt`` (input prep `:298-307`, frame `:351-387`) as
+`SuperPointFrontend.frame`.  PyTorch runs eagerly, so there is nothing to
+export: the frame program is a method.  StableHLO/PJRT export and sharded
+extraction are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from feature_point_cnn_tpu_torch.config import SuperPointConfig
+from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
 from feature_point_cnn_tpu_torch.device import resolve_device
 from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
 from feature_point_cnn_tpu_torch.ops.descriptors import sample_descriptors
@@ -30,6 +31,10 @@ from feature_point_cnn_tpu_torch.ops.detection import (
 from feature_point_cnn_tpu_torch.ops.kernels import use_kernel
 from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
 from feature_point_cnn_tpu_torch.ops.matching import mnn_match
+from feature_point_cnn_tpu_torch.selflabel.adaptation import (
+    Generators,
+    homography_adaptation,
+)
 from feature_point_cnn_tpu_torch.utils.weights import load_variables
 
 
@@ -57,6 +62,30 @@ def extract_fn(
             prob = decode_prob_map(logits, config.cell)
         kp = refine_keypoints(prob, kp)
     return kp, sample_descriptors(desc_map, kp, h, w)
+
+
+def adaptation_prob_fn(model: SuperPoint, config: SuperPointConfig):
+    """The probability map adaptation aggregates: ``(M, H, W, 3)`` images
+    -> ``(M, H, W)``, through the decode kernel where its gate is on."""
+    def prob_fn(x: torch.Tensor) -> torch.Tensor:
+        logits, _ = model.features(x, enable_descriptor=False)
+        if use_kernel(config.use_cuda_decode, logits):
+            # threshold 0 keeps every probability (where(p >= 0, p, 0) = p),
+            # so the kernel returns the raw decoded map
+            return decode_threshold_cuda(logits, config.cell, 0.0)
+        return decode_prob_map(logits, config.cell)
+
+    return prob_fn
+
+
+def adaptation_fn(
+    model: SuperPoint, images: torch.Tensor, gen: Generators,
+    config: SuperPointConfig, homo_config: HomographyConfig,
+) -> torch.Tensor:
+    """Homography adaptation of the model's own probability map: ``(B, H,
+    W, 3)`` images -> ``(B, H, W)`` aggregated probabilities."""
+    return homography_adaptation(gen, images, adaptation_prob_fn(model, config),
+                                 homo_config)
 
 
 def prep_images(images: torch.Tensor, channels: int) -> torch.Tensor:
@@ -107,6 +136,18 @@ class SuperPointFrontend:
         kp, desc = self.extract(np.asarray(img, np.float32)[None])
         v = kp.valid[0].cpu().numpy()
         return keypoints_to_numpy(kp, 0), desc[0].cpu().numpy()[v].T
+
+    @torch.inference_mode()
+    def run_with_homography_adaptation(
+        self, images, homo_config: HomographyConfig, gen: Generators
+    ) -> List[np.ndarray]:
+        """Self-labeling pass: ``(B, H, W, 3)`` images -> the aggregated
+        map's keypoints, one ``(3, N)`` ``[x, y, conf]`` array an image.
+        ``gen``: one generator shared by the batch, or one an image."""
+        images = self._images(images).to(torch.float32)
+        prob = adaptation_fn(self.model, images, gen, self.config, homo_config)
+        kp = extract_keypoints(prob, self.config)
+        return [keypoints_to_numpy(kp, i) for i in range(images.shape[0])]
 
     @torch.inference_mode()
     def frame(self, images, key_desc, key_num, top_n: int = 256):

@@ -164,7 +164,8 @@ def test_decode_gate_on_cpu_matches_prob_path():
 
 def test_port_imports_no_jax():
     """Importing every port module, chip_smoke and bench_torch_nms pulls in
-    neither JAX nor the JAX package."""
+    neither JAX nor the JAX package, nor cv2 or PIL (the H100 machine has
+    neither)."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "feature_point_cnn_tpu_torch").rglob("*.py")
@@ -174,7 +175,7 @@ def test_port_imports_no_jax():
         f"for m in {mods!r} + ['chip_smoke', 'bench_torch_nms']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'feature_point_cnn_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'feature_point_cnn_tpu', 'cv2', 'PIL')]\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
