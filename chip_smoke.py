@@ -6,8 +6,10 @@ paths on one CUDA card and check them.
 
 Phases, each a hard failure (non-zero exit) when it does not hold:
 
-1. the card's name and power limit; build the CUDA kernels from
-   `feature_point_cnn_tpu_torch/csrc/` (one nvcc each, in parallel);
+1. the card's name and power limit; whether cv2, PIL, sklearn and
+   tensorboard can be found here, with their versions (nothing imported);
+   build the CUDA kernels from `feature_point_cnn_tpu_torch/csrc/` (one
+   nvcc each, in parallel);
 2. decode: the kernel against its plain version on logits of the released
    weights at 480x640, B = 8 and 32, and on ragged (1, 9, 11) logits (max
    |diff| <= 1e-6, mask flips only where |p - t| <= 1e-6); a trace shows
@@ -25,7 +27,10 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 5. timing: extract and frame ms/frame at B = 1 and 32, extract with the
    decode kernel on and off, a traced window of frame calls (device busy
    share, time by kernel), and each kernel against its plain version and
-   its bound;
+   its bound; the ``fold_bn`` A/B: at float32 (TF32 off) folded prob maps
+   within 1e-5 of live BatchNorm's, the same keypoints, no BatchNorm kernel
+   in the folded trace; at bf16 frame ms/frame folded and live in turns at
+   B = 1 and 32;
 6. descriptor loss: the forward and backward kernels against the plain
    version (float32, TF32 off) at three small shapes, at shapes that cross
    every edge of the kernels' tiling (N = 195 = 128 + 64 + 3 with D = 128
@@ -63,7 +68,19 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    card's float32 run against the port's CPU run on 4 pairs (within 0.02 on
    repeatability and matching score); RANSAC on the card on exact
    correspondences (< 0.1 px); a 2-sequence HPatches layout written as PPM
-   (repeatability 1.0 on its identity sequence).
+   (repeatability 1.0 on its identity sequence);
+11. the training data path at full width (240x320, batch 32): 160 polygon
+   scenes written as npz items and packed by `pack_split`, opened by
+   `PackedPointDataset` and `make_loader` (a `DeviceBatchLoader`, whose
+   batches equal the packed rows); MagicPoint and SuperPoint `Trainer`
+   epochs with ``train_steps_per_call`` 1 (eager steps) and 4 (replays of
+   the captured CUDA graph of the step) at float32, TF32 off, cuDNN
+   deterministic: parameters equal within rtol 2e-4 + atol 2e-5 (and
+   whether bit-equal); the descriptor-loss kernels in a trace of the
+   replays; ``metrics.jsonl`` and the overlay image written (through the
+   decode and NMS kernels); eager against graphed ms/step, images/s and
+   busy share at bf16; `generate_dataset`'s images/s on the host where cv2
+   is installed.
 
 The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
 and under ``b32`` at B = 32, the kernel's device time from a trace
@@ -74,7 +91,11 @@ Their ``launches`` count the serving path's calls; ``launches_selflabel``
 and ``launches_eval`` those of phases 9 and 10, each counted from 0 just
 before its path, and ``selflabel_shape`` the kernel at the self-labeling
 shape (decode at threshold 0 on the 240 warped views, NMS on the 16
-aggregated maps).
+aggregated maps).  ``launches_train_data`` counts each wrapper's calls in
+phase 11 (a CUDA graph replay calls no wrapper: the descriptor-loss rows
+count the eager steps, the warm-up and the capture, and
+``graph_replay_kernels_traced`` gives the kernels a trace of one call of 4
+replays shows).
 
 It prints a ``{"kernels": [...]}`` line, the card's line again, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 and
@@ -86,6 +107,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -223,6 +245,26 @@ def shifted_pair(seed: int, h: int, w: int, shift: int):
     scene = polygon_scene(np.random.default_rng(seed), h, w + shift)
     u8 = np.round(scene * 255).astype(np.uint8)[..., None]
     return u8[:, :w], u8[:, shift:shift + w]
+
+
+def import_survey() -> dict:
+    """Whether cv2, PIL, sklearn and tensorboard can be found here, with
+    their distributions' versions, without importing any of them."""
+    import importlib.metadata
+    import importlib.util
+
+    dists = importlib.metadata.packages_distributions()
+    out = {}
+    for mod in ("cv2", "PIL", "sklearn", "tensorboard"):
+        spec = importlib.util.find_spec(mod)
+        versions = {}
+        for dist in dists.get(mod, []):
+            try:
+                versions[dist] = importlib.metadata.version(dist)
+            except importlib.metadata.PackageNotFoundError:
+                pass
+        out[mod] = {"found": spec is not None, "versions": versions}
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -726,6 +768,201 @@ def eval_phase(seed: int, card: str) -> dict:
     return launches
 
 
+TD_ITEMS = 160        # packed scenes of phase 11: 5 batches of 32 a epoch
+TD_K = 4              # steps a call of the graphed runs: one call + a tail of 1
+GEN_PER_PRIMITIVE = 8  # host generation timed in phase 11: 9 primitives x 8
+
+
+def write_scene_items(path: Path, seed: int, n: int, h: int, w: int) -> None:
+    """``n`` polygon scenes with their corners as npz items in the on-disk
+    contract (``image (1, h, w)`` float32, ``points (3, N)`` [x, y, 1])."""
+    rng = np.random.default_rng(seed)
+    path.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img, pts = polygon_scene(rng, h, w, n_polygons=20, return_points=True)
+        xy = np.vstack([pts[:, ::-1].T, np.ones((1, len(pts)))]).astype(np.float32)
+        np.savez_compressed(path / f"scene_{i:04d}.npz", image=img[None], points=xy)
+
+
+def train_data_phase(seed: int, card: str, survey: dict) -> dict:
+    """Phase 11: the training data path at full width: a packed split on
+    the card, `Trainer` epochs with k = 1 (eager steps) and k = 4 (replays
+    of the captured step), the summaries, the timing; host generation where
+    cv2 is installed."""
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.data.device_store import DeviceBatchLoader, make_loader
+    from feature_point_cnn_tpu_torch.data.packed import PackedPointDataset, pack_split
+    from feature_point_cnn_tpu_torch.ops import kernels
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
+    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
+        hinge_descriptor_loss_cuda)
+    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
+    from feature_point_cnn_tpu_torch.train.trainer import Trainer
+
+    cfg = SuperPointConfig(lr_schedule="constant")
+    th, tw = cfg.train_image_size
+    tb = cfg.batch_size
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_data_", dir=str(kernels.BUILD_DIR)))
+    t0 = time.perf_counter()
+    write_scene_items(work / "npz", seed + 110, TD_ITEMS, th, tw)
+    t1 = time.perf_counter()
+    meta = pack_split(str(work / "npz"), str(work / "packed" / "train"))
+    t2 = time.perf_counter()
+    ds = PackedPointDataset(str(work / "packed"), "train", seed=seed)
+    loader = make_loader(ds, tb, cfg.max_points, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check(isinstance(loader, DeviceBatchLoader), "make_loader chose the device loader")
+    print(f"train data: {TD_ITEMS} scenes {th}x{tw} written in {t1 - t0:.2f} s, packed "
+          f"in {t2 - t1:.2f} s ({meta}), uploaded in {t3 - t2:.2f} s: "
+          f"{loader.images.numel() + 4 * (loader.points.numel() + loader.counts.numel())} "
+          f"bytes on the card")
+    rows = np.sort(ds.index)
+    order = np.arange(len(rows))
+    np.random.default_rng(seed + 0).shuffle(order)
+    for i, b in enumerate(loader.epoch(0)):
+        take = rows[order[i * tb:(i + 1) * tb]]
+        check(np.array_equal(b["image"].cpu().numpy(), ds.images[take])
+              and np.array_equal(b["points_valid"].sum(-1).cpu().numpy(),
+                                 np.minimum(ds.counts[take], cfg.max_points)),
+              f"device batch {i} equals the packed rows")
+    print(f"train data: {len(loader)} device batches equal the packed arrays")
+
+    # k = 1 (eager) against k = 4 (graphed) at float32, TF32 off and cuDNN's
+    # deterministic algorithms: the same steps must give the same parameters
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = cfg.replace(compute_dtype="float32")
+    launches = {"decode_threshold": 0, "grid_nms": 0, "descriptor_loss_fwd": 0,
+                "descriptor_loss_bwd": 0}
+    graph_launches = {}
+    for phase in ("magicpoint", "superpoint"):
+        params = {}
+        for k in (1, TD_K):
+            decode_threshold_cuda.launches = grid_nms_cuda.launches = 0
+            hinge_descriptor_loss_cuda.launches_fwd = 0
+            hinge_descriptor_loss_cuda.launches_bwd = 0
+            ck = work / f"ck_{phase}_{k}"
+            tr = Trainer(cfg32.replace(train_steps_per_call=k), phase, loader, None,
+                         str(ck), seed=seed, device="cuda", log_every=1)
+            t0 = time.perf_counter()
+            m = tr.train_epoch(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tr.writer.close()
+            check(tr.state.step == len(loader) and int(tr.state.optimizer.count) == len(loader),
+                  f"{phase} k = {k}: {len(loader)} steps taken, none skipped")
+            check((tr._graph is not None) == (k > 1), f"{phase} k = {k}: graphed iff k > 1")
+            check(all(np.isfinite(v) for v in m.values()), f"{phase} k = {k}: finite metrics")
+            got = {"decode_threshold": decode_threshold_cuda.launches,
+                   "grid_nms": grid_nms_cuda.launches,
+                   "descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
+                   "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
+            for key in launches:
+                launches[key] += got[key]
+            runs = ck / "runs"
+            lines = (runs / "metrics.jsonl").read_text().splitlines()
+            overlay = runs / f"detector_{phase}_4.ppm"
+            print(f"train data {phase} k = {k}: epoch in {wall:.2f} s (first call builds "
+                  f"and captures), loss {m['loss']:.4f}, wrapper launches {got}, "
+                  f"{len(lines)} metrics.jsonl lines, overlay {overlay.name} "
+                  f"{overlay.stat().st_size if overlay.exists() else 'MISSING'} bytes")
+            check(len(lines) >= len(loader) and overlay.exists(),
+                  f"{phase} k = {k}: scalars and the overlay image written")
+            check(got["decode_threshold"] > 0 and got["grid_nms"] > 0,
+                  f"{phase} k = {k}: the overlay went through decode and NMS")
+            if phase == "superpoint":
+                # eager: a step each; graphed: 2 warm-up steps, the capture
+                # and the tail of 1 (the replays launch without the wrapper)
+                want = len(loader) if k == 1 else 2 + 1 + len(loader) % k
+                check(got["descriptor_loss_fwd"] == got["descriptor_loss_bwd"] == want,
+                      f"superpoint k = {k}: descriptor-loss wrappers {want} times")
+            params[k] = {n: v.detach().clone() for n, v in tr.state.model.state_dict().items()}
+            if k > 1:
+                idxs = list(loader.epoch_index_arrays(1))[:k]
+                graph_launches[phase] = traced_launches(
+                    lambda: tr.train_steps(idxs, 1, 0), DL_KERNEL_NAMES, calls=2)
+                print(f"train data {phase}: kernels in a traced call of {k} replays "
+                      f"{graph_launches[phase]}")
+                if phase == "superpoint":
+                    # a step: forward split, 3 sweeps, sum; backward 2 splits,
+                    # 2 sweeps, 2 gradient sweeps
+                    want = {"wgmma_sweep_kernel": 5 * k, "wgmma_grad_kernel": 2 * k,
+                            "split_kernel": 2 * k, "split_transposed_kernel": k,
+                            "sum_kernel": k}
+                    check(graph_launches[phase] == want,
+                          f"the descriptor-loss kernels launch inside the graphed "
+                          f"step: {want}")
+            del tr
+        diff = max(float((params[TD_K][n].float() - v.float()).abs().max())
+                   for n, v in params[1].items())
+        bit = all(torch.equal(params[TD_K][n], v) for n, v in params[1].items())
+        print(f"train data {phase}: k = {TD_K} graphed vs k = 1 eager after "
+              f"{len(loader)} steps: max |diff| {diff:.3g}, bit-equal {bit}")
+        for n, v in params[1].items():
+            check(torch.allclose(params[TD_K][n].float(), v.float(), rtol=2e-4, atol=2e-5),
+                  f"{phase} {n}: graphed equals eager within rtol 2e-4 + atol 2e-5")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+
+    # timing at the training default (bf16): eager steps against replays,
+    # in turns eager / graphed / graphed / eager
+    trainers = {k: Trainer(cfg.replace(train_steps_per_call=k), "superpoint", loader,
+                           None, str(work / f"time_{k}"), seed=seed, device="cuda",
+                           write_statistics=False) for k in (1, TD_K)}
+    idxs = list(loader.epoch_index_arrays(0))[:TD_K]
+
+    def eager():
+        t = trainers[1]
+        for j, idx in enumerate(idxs):
+            t._fused_step(idx, t._seed(0, j))
+
+    def graphed():
+        trainers[TD_K].train_steps(idxs, 0, 0)
+
+    ms = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        fn = eager if name == "eager" else graphed
+        ms[name].append(host_median_ms(fn, runs=10) / TD_K)
+    busy = {}
+    for name, fn in (("eager", eager), ("graphed", graphed)):
+        w = prof_window(fn, 3, TD_K, f"train step b{tb} {name}", "step", card,
+                        named=DL_KERNEL_NAMES)
+        busy[name] = w["device_ms"] / w["wall_ms"]
+    for name in ms:
+        mean = float(np.mean(ms[name]))
+        print(f"train data step b{tb} {name}: {ms[name]} ms/step ({1e3 * tb / mean:.1f} "
+              f"images/s), busy share {busy[name]:.3f} [{card}]")
+    del trainers
+
+    # host generation of the synthetic shapes (no kernel, no device)
+    if survey["cv2"]["found"]:
+        # the CLI in a process of its own (a fork of this one would carry
+        # the CUDA context); its interpreter start and imports timed apart
+        gen_dir = work / "generated"
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import feature_point_cnn_tpu_torch.data.generate"],
+                       check=True, timeout=300)
+        t1 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "feature_point_cnn_tpu_torch.data.generate",
+                        str(gen_dir), "--train-size", str(GEN_PER_PRIMITIVE),
+                        "--test-size", "0", "--seed", str(seed)],
+                       check=True, capture_output=True, text=True, timeout=600)
+        t2 = time.perf_counter()
+        n = len(list((gen_dir / "train").glob("*.npz")))
+        check(n == 9 * GEN_PER_PRIMITIVE, f"generate_dataset wrote {n} items")
+        gen_s = (t2 - t1) - (t1 - t0)
+        print(f"train data generate_dataset on the host: {n} images 240x320 in "
+              f"{t2 - t1:.2f} s, of which {t1 - t0:.2f} s interpreter start and imports: "
+              f"{n / gen_s:.1f} images/s generated ({os.cpu_count()} cores)")
+    else:
+        print("train data generate_dataset: not run (cv2 is not installed here)")
+    shutil.rmtree(work)
+    return {"launches": launches, "graph_launches": graph_launches,
+            "ms": ms, "busy": busy}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -772,6 +1009,8 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    survey = import_survey()
+    print("import survey: " + json.dumps(survey))
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -926,6 +1165,56 @@ def main(argv=None) -> int:
         imgs_u8 = torch.from_numpy(np.resize(scenes, (b, H, W, 1))).cuda()
         prof_window(lambda: fe.frame(imgs_u8, k_desc[0], k_num[0]), 5, b,
                     f"b{b} frame", "frame", card)
+
+    # the fold_bn A/B: BatchNorm folded into the convolutions at load
+    # against live BatchNorm.  Float32 with TF32 off first: prob maps within
+    # 1e-5, the same keypoints, and no BatchNorm kernel in the folded trace
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.replace(compute_dtype="float32")
+    fes = {fold: SuperPointFrontend(cfg32.replace(fold_bn=fold), weights_path=weights,
+                                    device="cuda") for fold in (False, True)}
+    with torch.inference_mode():
+        probs = {fold: f.model(batch)[0] for fold, f in fes.items()}
+        kps = {fold: f.extract(batch)[0] for fold, f in fes.items()}
+    fold_err = float((probs[True] - probs[False]).abs().max())
+    same_kp = all(torch.equal(getattr(kps[True], f_), getattr(kps[False], f_))
+                  for f_ in ("y", "x", "valid"))
+    print(f"fold_bn float32: prob max|folded - live| {fold_err:.3g}, keypoints equal "
+          f"{same_kp} ({int(kps[True].valid.sum())} keypoints)")
+    check(fold_err <= 1e-5, "folded prob maps within 1e-5 of live BatchNorm")
+    check(same_kp, "folded keypoints equal live BatchNorm's")
+    bn_kernels, traced = {}, {}
+    for fold, f in fes.items():
+        with torch.inference_mode():
+            traced[fold] = trace_device(lambda: f.model.features(batch))
+        bn_kernels[fold] = {k: n for k, (n, _) in traced[fold].items()
+                            if "bn_" in k.lower() or "batch_norm" in k.lower()}
+    print(f"fold_bn trace: BatchNorm kernels live {sum(bn_kernels[False].values()):.0f} "
+          f"launches {sorted(bn_kernels[False])[:3]}, folded "
+          f"{sum(bn_kernels[True].values()):.0f}")
+    check(bool(bn_kernels[False]) and not bn_kernels[True],
+          f"BatchNorm kernels in the live trace and none in the folded one "
+          f"(live {sorted(traced[False])}, folded {sorted(traced[True])})")
+    del fes, probs, kps
+    torch.backends.cudnn.allow_tf32 = True
+    # then the serving default (bf16): frame ms/frame, on and off in turns
+    fe_fold = SuperPointFrontend(cfg.replace(fold_bn=True), weights_path=weights,
+                                 device="cuda")
+    fold_ms = {}
+    for b in (1, 32):
+        imgs_u8 = torch.from_numpy(np.resize(scenes, (b, H, W, 1))).cuda()
+        ab = {"on": [], "off": []}
+        for gate in ("on", "off", "off", "on"):
+            f = fe_fold if gate == "on" else fe
+            ab[gate].append(host_median_ms(
+                lambda: f.frame(imgs_u8, k_desc[0], k_num[0])) / b)
+        fold_ms[b] = ab
+        print(f"fold_bn b{b}: frame fold on {ab['on']} off {ab['off']} ms/frame [{card}]")
+    imgs_u8 = torch.from_numpy(np.resize(scenes, (32, H, W, 1))).cuda()
+    prof_window(lambda: fe_fold.frame(imgs_u8, k_desc[0], k_num[0]), 5, 32,
+                "b32 frame fold_bn", "frame", card)
+    del fe_fold
 
 
     # rows 1-2 at the main path's B = 8 and at B = 32: the device's own time
@@ -1102,7 +1391,7 @@ def main(argv=None) -> int:
           f"scene, made in {time.perf_counter() - t0:.2f} s")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(kernels.BUILD_DIR))
     trainer = Trainer(tcfg, "superpoint", loader, None, ckpt_dir, seed=args.seed,
-                      device="cuda", log_every=1)
+                      device="cuda", log_every=1, write_statistics=False)
     model_t = trainer.state.model
     before = {k: v.detach().clone() for k, v in model_t.state_dict().items()}
     hinge_descriptor_loss_cuda.launches_fwd = 0
@@ -1295,10 +1584,19 @@ def main(argv=None) -> int:
 
     # ---- 10. two-view evaluation ------------------------------------------
     ev = eval_phase(args.seed, card)
+
+    # ---- 11. the training data path ---------------------------------------
+    td = train_data_phase(args.seed, card, survey)
     for r in rows[:2]:
         r["launches_selflabel"] = sl["launches"][r["name"]]
         r["launches_eval"] = ev[r["name"]]
         r["selflabel_shape"] = sl["shapes"][r["name"]]
+    for r in rows:
+        # wrapper calls of phase 11 (rows 1-2: the overlay's extract; rows
+        # 3a/3b: eager steps, warm-up and capture; replays do not call them)
+        r["launches_train_data"] = td["launches"][r["name"]]
+    for r in rows[2:]:
+        r["graph_replay_kernels_traced"] = td["graph_launches"].get("superpoint")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,12 @@ A copy of the JAX package's ``SuperPointConfig`` and ``HomographyConfig``
 (`feature_point_cnn_tpu/config.py:27-180,202-239`) with the same defaults,
 so one operating point means the same thing on both sides.  Left out on
 purpose: ``stem_s2d`` (a TPU-only reparametrisation of the stem conv),
-``fold_bn`` (its folding module is not ported yet), ``grid_channels``
-(always 65: the 64 cell positions and the dustbin), ``train_steps_per_call``
-(the scanned multi-step dispatch) and ``data_axis`` (the device mesh): the
-last two belong to slices that are not ported yet.
+``grid_channels`` (always 65: the 64 cell positions and the dustbin) and
+``data_axis`` (the device mesh, which belongs to the parallel slice, not
+ported yet).  ``fold_bn`` folds BatchNorm into the convolutions for serving
+(`models/fold.py`); ``train_steps_per_call`` runs k optimizer steps a host
+call, on the card as k replays of a CUDA graph of the step
+(`train/trainer.py`).
 
 The kernel gates take ``"auto"`` (the CUDA kernel for CUDA tensors, the
 plain PyTorch version otherwise), ``"on"`` or ``"off"``.  Unlike the JAX
@@ -42,6 +44,10 @@ class SuperPointConfig:
     use_cuda_desc_loss: str = "auto"  # hinge descriptor loss kernels, forward
                                       # and backward, no (B, N, N) in device
                                       # memory (ops/kernels/descriptor_loss.py)
+    fold_bn: bool = False             # serving topology: BatchNorms folded
+                                      # into conv weight + bias at load
+                                      # (models/fold.py); training always
+                                      # keeps live BatchNorm
 
     # --- model topology ---
     image_channels: int = 3
@@ -70,6 +76,10 @@ class SuperPointConfig:
     batch_size: int = 32
     grad_accum_steps: int = 1         # accumulate k FULL-size batches into one
                                       # update (k x effective batch)
+    train_steps_per_call: int = 1     # device-resident data only: k optimizer
+                                      # steps a host call (on the card, k
+                                      # replays of a CUDA graph of the step);
+                                      # 1 = one eager step a call
     learning_rate: float = 1.0e-3
     lr_schedule: str = "warmup_cosine"  # "constant" | "warmup_cosine"
     warmup_steps: int = 200           # linear warmup from 0
@@ -100,6 +110,8 @@ class SuperPointConfig:
                 raise ValueError(f"{gate} must be 'auto', 'on' or 'off'")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.train_steps_per_call < 1:
+            raise ValueError("train_steps_per_call must be >= 1")
 
     def grid_size(self, img_h: int, img_w: int) -> Tuple[int, int]:
         if img_h % self.cell or img_w % self.cell:

@@ -1,0 +1,149 @@
+"""Device-resident dataset: upload a packed split once, gather batches on
+the device (`feature_point_cnn_tpu/data/device_store.py`).
+
+A packed split (`data/packed.py`) is uploaded once as uint8 images,
+float32 points and int32 counts.  Each batch is then an index gather on the
+device from a ``(B,)`` int32 index tensor, so a step ships no images over
+the host link; float conversion, the gray repeat, label encoding and
+augmentation already run inside the step (`train/steps.py`).  `Trainer`
+fuses the gather into its step (`gather_fn`), and its CUDA graph of the
+step reads the index from a fixed buffer.
+
+The epoch order is ``np.random.default_rng(seed + epoch)`` shuffling
+``arange(N)``, as the JAX loader's ``_epoch_order``, so the same seed gives
+the JAX package's batches.  One placement only: the whole split on one
+device (``"replicated"``).  The item-sharded placement belongs to the
+parallel slice (ROADMAP §1 item 5) and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterator
+
+import numpy as np
+import torch
+
+from feature_point_cnn_tpu_torch.device import resolve_device
+
+Batch = Dict[str, torch.Tensor]
+
+
+def dataset_nbytes(ds) -> int:
+    """Host-side size of a packed dataset's arrays."""
+    return int(
+        ds.images.dtype.itemsize * np.prod(ds.images.shape)
+        + ds.points.dtype.itemsize * np.prod(ds.points.shape)
+        + ds.counts.dtype.itemsize * np.prod(ds.counts.shape)
+    )
+
+
+def _gather(images: torch.Tensor, points: torch.Tensor, counts: torch.Tensor,
+            batch_idx: torch.Tensor) -> Batch:
+    """One batch: ``image (B, H, W, C)`` uint8, ``points (B, P, 2)``,
+    ``points_valid (B, P)`` bool, from a ``(B,)`` index on the device."""
+    cnt = counts.index_select(0, batch_idx)
+    slots = torch.arange(points.shape[1], device=points.device)
+    return {
+        "image": images.index_select(0, batch_idx),
+        "points": points.index_select(0, batch_idx),
+        "points_valid": slots[None, :] < cnt[:, None],
+    }
+
+
+class DeviceBatchLoader:
+    """Drop-in replacement for ``datasets.BatchLoader`` backed by
+    device-resident tensors (``packed.PackedPointDataset`` source only).
+    ``device=None`` means ``cuda``."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        max_points: int,
+        device=None,
+        seed: int = 0,
+        shuffle: bool = True,
+        items_placement: str = "replicated",
+    ):
+        if items_placement == "sharded":
+            raise NotImplementedError(
+                "items_placement='sharded' (the item axis split over a device "
+                "mesh) belongs to the parallel slice, ROADMAP §1 item 5, "
+                "which is not ported yet")
+        if items_placement != "replicated":
+            raise ValueError(f"unknown items_placement {items_placement!r}")
+        self.batch_size = batch_size
+        self.max_points = max_points
+        self.seed = seed
+        self.shuffle = shuffle
+        self.items_placement = items_placement
+        self.device = resolve_device(device)
+
+        # the dataset's (size-capped, seed-permuted) item view, sorted, once
+        idx = np.sort(np.asarray(dataset.index))
+        k = min(dataset.points.shape[1], max_points)
+        points = np.zeros((len(idx), max_points, 2), np.float32)
+        points[:, :k] = dataset.points[idx, :k]
+        counts = np.minimum(np.asarray(dataset.counts[idx]), max_points)
+        self.images = torch.from_numpy(
+            np.ascontiguousarray(dataset.images[idx])).to(self.device)
+        self.points = torch.from_numpy(points).to(self.device)
+        self.counts = torch.from_numpy(counts.astype(np.int32)).to(self.device)
+
+    def __len__(self) -> int:
+        return self.images.shape[0] // self.batch_size
+
+    def _epoch_order(self, epoch_index: int) -> np.ndarray:
+        order = np.arange(self.images.shape[0])
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch_index).shuffle(order)
+        return order
+
+    def epoch_index_arrays(self, epoch_index: int = 0) -> Iterator[torch.Tensor]:
+        """The epoch's ``(B,)`` int32 index tensors, uploaded in one copy;
+        for callers that fuse the gather into their own step."""
+        n, b = len(self), self.batch_size
+        order = self._epoch_order(epoch_index)[: n * b].reshape(n, b)
+        order = torch.from_numpy(order.astype(np.int32)).to(self.device)
+        yield from order
+
+    def epoch(self, epoch_index: int = 0) -> Iterator[Batch]:
+        for batch_idx in self.epoch_index_arrays(epoch_index):
+            yield self.materialize(batch_idx)
+
+    def gather_fn(self) -> Callable[..., Batch]:
+        """The gather ``(images, points, counts, batch_idx) -> batch``."""
+        return _gather
+
+    def materialize(self, batch_idx: torch.Tensor) -> Batch:
+        """One batch as device tensors."""
+        return _gather(self.images, self.points, self.counts, batch_idx)
+
+
+# auto-selection threshold: leave the bulk of device memory to the step
+MAX_RESIDENT_BYTES = 6 << 30
+
+
+def make_loader(
+    dataset,
+    batch_size: int,
+    max_points: int,
+    seed: int = 0,
+    shuffle: bool = True,
+    device_resident: str = "auto",
+    device=None,
+):
+    """The device-resident loader when the source is packed and fits; the
+    host prefetching loader otherwise (the JAX package's choice)."""
+    from feature_point_cnn_tpu_torch.data.datasets import BatchLoader
+    from feature_point_cnn_tpu_torch.data.packed import PackedPointDataset
+
+    want = device_resident == "on" or (
+        device_resident == "auto"
+        and isinstance(dataset, PackedPointDataset)
+        and dataset_nbytes(dataset) <= MAX_RESIDENT_BYTES
+    )
+    if want and isinstance(dataset, PackedPointDataset):
+        return DeviceBatchLoader(dataset, batch_size, max_points, device=device,
+                                 seed=seed, shuffle=shuffle)
+    return BatchLoader(dataset, batch_size, max_points, seed=seed, shuffle=shuffle)

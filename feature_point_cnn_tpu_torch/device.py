@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -16,3 +18,11 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=128)
+def constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once and then reused
+    (read-only).  A step captured in a CUDA graph may not copy from the
+    host, and the warm-up before a capture makes every constant it needs."""
+    return torch.tensor(values, dtype=dtype, device=device)

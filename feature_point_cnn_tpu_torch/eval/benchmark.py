@@ -1,15 +1,16 @@
 """Two-view evaluation harness: HPatches-protocol metrics over warped pairs
 (`feature_point_cnn_tpu/eval/benchmark.py:48-120`).
 
-Builds evaluation pairs from an image directory or a labeled npz dataset by
+Builds evaluation pairs from an image directory, a labeled npz dataset or
+the synthetic-shape generator (`data/synthetic_shapes.py`, which draws with
+``cv2``: without it ``--source synthetic`` raises an ``ImportError``) by
 warping each image with a sampled homography, runs the frontend on both
-views, and aggregates `eval.metrics` over the pairs.  The synthetic-shape
-source needs the shape generator, which needs ``cv2`` and is not ported
-yet: ``--source synthetic`` raises until it is.
+views, and aggregates `eval.metrics` over the pairs.
 
 Usage:
-    python -m feature_point_cnn_tpu_torch.eval.benchmark --source <dir> \
-        [--weights-path weights/X.npz] [--pairs 20] [--eps 3.0] [--device cpu]
+    python -m feature_point_cnn_tpu_torch.eval.benchmark \
+        [--source synthetic|<dir>] [--weights-path weights/X.npz] \
+        [--pairs 20] [--eps 3.0] [--device cpu]
 """
 
 from __future__ import annotations
@@ -28,6 +29,38 @@ from feature_point_cnn_tpu_torch.geometry.homography import sample_homography
 from feature_point_cnn_tpu_torch.geometry.warp import warp_image
 from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
 from feature_point_cnn_tpu_torch.selflabel.coco import item_generator
+
+
+def synthetic_images(n: int, shape: Tuple[int, int],
+                     seed: int = 0) -> Iterable[np.ndarray]:
+    """``n`` ``(H, W, 3)`` float32 scenes of the corner-rich primitives in
+    turn, drawn at 4x and downscaled, as the JAX package's
+    ``synthetic_images``; raises ``ImportError`` here, not when iterated,
+    where ``cv2`` is missing."""
+    try:
+        import cv2  # noqa: F401  (the shape generator draws with it)
+    except ImportError as e:
+        raise ImportError(
+            "--source synthetic draws its scenes with cv2, which is not "
+            "installed; pass --source <image or npz directory>") from e
+    from feature_point_cnn_tpu_torch.data.synthetic_shapes import (
+        PRIMITIVES,
+        SyntheticShapeGenerator,
+    )
+
+    gen = SyntheticShapeGenerator(
+        np.random.default_rng(seed),
+        image_size=(shape[0] * 4, shape[1] * 4),
+        out_size=shape,
+    )
+    corner_rich = [p for p in PRIMITIVES if p not in ("ellipses", "gaussian_noise")]
+
+    def images():
+        for i in range(n):
+            image, _ = gen.sample(corner_rich[i % len(corner_rich)])
+            yield np.repeat(image[0][..., None], 3, axis=-1)
+
+    return images()
 
 
 def directory_images(path: str, shape: Tuple[int, int]) -> Iterable[np.ndarray]:
@@ -98,18 +131,16 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="default: cuda")
     opt = ap.parse_args(argv)
 
+    shape = (opt.H, opt.W)
     if opt.source == "synthetic":
-        raise NotImplementedError(
-            "--source synthetic needs the synthetic-shape generator "
-            "(data/synthetic_shapes.py), which needs cv2 and is not ported "
-            "yet; pass --source <image or npz directory>")
+        images = synthetic_images(opt.pairs, shape)
+    else:
+        images = list(directory_images(opt.source, shape))[: opt.pairs]
     cfg = SuperPointConfig(
         max_keypoints=opt.max_keypoints, subpixel_refine=opt.subpixel
     )
     frontend = SuperPointFrontend(cfg, weights_path=opt.weights_path,
                                   device=opt.device)
-    shape = (opt.H, opt.W)
-    images = list(directory_images(opt.source, shape))[: opt.pairs]
     out = evaluate_pairs(frontend, images, HomographyConfig(), eps=opt.eps)
     print(json.dumps(out, indent=2))
 

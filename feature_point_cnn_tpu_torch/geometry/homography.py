@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from feature_point_cnn_tpu_torch.config import HomographyConfig
+from feature_point_cnn_tpu_torch.device import constant
 from feature_point_cnn_tpu_torch.geometry.warp import warp_image
 
 
@@ -46,7 +47,10 @@ def mat2flat(m: torch.Tensor) -> torch.Tensor:
 
 
 def invert_homography(h: torch.Tensor) -> torch.Tensor:
-    return mat2flat(torch.linalg.inv(flat2mat(h)))
+    # no error check, as `jnp.linalg.inv` has none: on a card the check would
+    # read the solver's status back to the host, which no step captured in a
+    # CUDA graph may do
+    return mat2flat(torch.linalg.inv_ex(flat2mat(h), check_errors=False).inverse)
 
 
 def compose_homographies(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
@@ -80,7 +84,7 @@ def warp_points(points: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def points_in_image_mask(points: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     """Bool mask of ``(..., 2)`` ``(y, x)`` points inside ``[0, shape-1]``."""
-    limit = torch.tensor(shape, dtype=torch.float32, device=points.device) - 1.0
+    limit = constant(tuple(shape), points.device) - 1.0
     return ((points >= 0.0) & (points <= limit)).all(dim=-1)
 
 
@@ -119,6 +123,14 @@ def _choose_uniform_valid(gen, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, gumbel, -torch.inf).argmax(dim=-1)
 
 
+@functools.lru_cache(maxsize=32)
+def _angles(max_angle: float, n: int, device) -> torch.Tensor:
+    """The rotation candidates ``(n + 1,)``: 0 first, then ``n`` evenly
+    spaced in ``[-max_angle, max_angle]``; made once a device."""
+    return torch.cat([torch.zeros(1), torch.linspace(-max_angle, max_angle, n)]
+                     ).to(device)
+
+
 def sample_homography_batch(
     gen: torch.Generator,
     batch: int,
@@ -136,8 +148,7 @@ def sample_homography_batch(
     """
     b = batch
     margin = (1.0 - config.patch_ratio) / 2.0
-    unit = torch.tensor([[0.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, 0.0]],
-                        device=gen.device)
+    unit = constant(((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0)), gen.device)
     pts1 = (margin + config.patch_ratio * unit).expand(b, 4, 2)  # (x, y)
     pts2 = pts1
 
@@ -188,9 +199,7 @@ def sample_homography_batch(
 
     if config.rotation:
         n = config.n_angles
-        angles = torch.cat([
-            torch.zeros(1), torch.linspace(-config.max_angle, config.max_angle, n)
-        ]).to(gen.device)                                      # (n+1,), 0 first
+        angles = _angles(config.max_angle, n, gen.device)      # (n+1,), 0 first
         center = pts2.mean(dim=1, keepdim=True)
         cos, sin = torch.cos(angles), torch.sin(angles)
         # row-vector convention: p' = p @ [[cos, -sin], [sin, cos]]
@@ -200,7 +209,7 @@ def sample_homography_batch(
                     + center[:, None])
 
     dev = torch.device(device) if device is not None else gen.device
-    wh = torch.tensor([shape[1], shape[0]], dtype=torch.float32, device=dev)
+    wh = constant((shape[1], shape[0]), dev)
     pts1 = pts1.to(dev) * wh
     pts2 = pts2.to(dev) * wh
 
@@ -212,7 +221,8 @@ def sample_homography_batch(
     ay_rows = torch.stack([zeros, zeros, zeros, px, py, ones, -px * qy, -py * qy], -1)
     a_mat = torch.stack([ax_rows, ay_rows], dim=2).reshape(b, 8, 8)
     b_vec = torch.stack([qx, qy], dim=-1).reshape(b, 8)
-    return torch.linalg.solve(a_mat, b_vec)
+    # no error check, as in `invert_homography`
+    return torch.linalg.solve_ex(a_mat, b_vec, check_errors=False).result
 
 
 def sample_homography(
@@ -246,6 +256,12 @@ def ellipse_kernel(radius: int) -> np.ndarray:
     return kernel
 
 
+@functools.lru_cache(maxsize=32)
+def _ellipse_kernel_on(radius: int, device) -> torch.Tensor:
+    """`ellipse_kernel` as a ``(1, 1, 2r, 2r)`` tensor, made once a device."""
+    return torch.from_numpy(ellipse_kernel(radius)).to(device)[None, None]
+
+
 def erode(mask: torch.Tensor, radius: int) -> torch.Tensor:
     """Binary erosion with the OpenCV ellipse element, zero border: anchor
     at ``(r, r)`` of a ``2r x 2r`` kernel, hence the asymmetric padding
@@ -253,9 +269,8 @@ def erode(mask: torch.Tensor, radius: int) -> torch.Tensor:
     H, W)``."""
     if radius <= 0:
         return mask
-    np_kernel = ellipse_kernel(radius)
-    ksum = float(np_kernel.sum())
-    kernel = torch.from_numpy(np_kernel).to(mask.device)[None, None]
+    ksum = float(ellipse_kernel(radius).sum())
+    kernel = _ellipse_kernel_on(radius, mask.device)
     squeeze = mask.dim() == 2
     x = (mask[None] if squeeze else mask)[:, None].to(torch.float32)
     x = F.pad(x, (radius, radius - 1, radius, radius - 1))

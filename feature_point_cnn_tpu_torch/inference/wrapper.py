@@ -18,6 +18,7 @@ import torch
 
 from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
 from feature_point_cnn_tpu_torch.device import resolve_device
+from feature_point_cnn_tpu_torch.models.fold import fold_batchnorm
 from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
 from feature_point_cnn_tpu_torch.ops.descriptors import sample_descriptors
 from feature_point_cnn_tpu_torch.ops.detection import (
@@ -110,12 +111,21 @@ class SuperPointFrontend:
         device=None,
     ):
         """``weights_path``: a ``weights/*.npz`` snapshot; without one the
-        weights are random, drawn from ``seed``."""
+        weights are random, drawn from ``seed``.  With ``config.fold_bn``
+        the BatchNorms are folded into the convolutions here: snapshots
+        always keep the live-BN layout (`wrapper.py:117-121`)."""
         self.config = config
         self.device = resolve_device(device)
-        model = SuperPoint(config, generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        # the fold reads float32 parameters, as the JAX fold does
+        live = SuperPoint(config.replace(fold_bn=False, compute_dtype=(
+            "float32" if config.fold_bn else config.compute_dtype)), generator=gen)
         if weights_path is not None:
-            model.load_state_dict(load_variables(weights_path, device="cpu"))
+            live.load_state_dict(load_variables(weights_path, device="cpu"))
+        model = live
+        if config.fold_bn:
+            model = SuperPoint(config, generator=torch.Generator())
+            model.load_state_dict(fold_batchnorm(live.state_dict()))
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
 
     def _images(self, images) -> torch.Tensor:

@@ -14,6 +14,11 @@ train mode `BatchNorm2d` keeps Flax's running statistics, not PyTorch's: the
 the unbiased one, n/(n-1) larger).  The batch statistics are computed once,
 by `F.batch_norm` itself, and the variance is rescaled on its way into
 `running_var`.
+
+``fold_bn=True`` is the serving topology (`blocks.py:163-228` of the JAX
+package): every convolution carries a bias and every BatchNorm is an
+``nn.Identity``, so `models/fold.py::fold_batchnorm`'s ``state_dict`` loads
+under the same names.
 """
 
 from __future__ import annotations
@@ -61,18 +66,23 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def batch_norm(channels: int, fold_bn: bool) -> nn.Module:
+    """A live BatchNorm, or the identity where it is folded away."""
+    return nn.Identity() if fold_bn else BatchNorm2d(channels)
+
+
 class ResNetBlock(nn.Module):
     def __init__(self, cin: int, channels: int, stride: int = 1,
-                 project_identity: bool = False):
+                 project_identity: bool = False, fold_bn: bool = False):
         super().__init__()
-        self.conv1 = Conv2d(cin, channels, 3, stride, 1, bias=False)
-        self.bn1 = BatchNorm2d(channels)
-        self.conv2 = Conv2d(channels, channels, 1, 1, 0, bias=False)
-        self.bn2 = BatchNorm2d(channels)
+        self.conv1 = Conv2d(cin, channels, 3, stride, 1, bias=fold_bn)
+        self.bn1 = batch_norm(channels, fold_bn)
+        self.conv2 = Conv2d(channels, channels, 1, 1, 0, bias=fold_bn)
+        self.bn2 = batch_norm(channels, fold_bn)
         self.identity_downsample = (
             nn.Sequential(
-                Conv2d(cin, channels, 1, stride, 0, bias=False),
-                BatchNorm2d(channels),
+                Conv2d(cin, channels, 1, stride, 0, bias=fold_bn),
+                batch_norm(channels, fold_bn),
             )
             if project_identity else None
         )
@@ -87,9 +97,11 @@ class ResNetBlock(nn.Module):
 
 
 def resnet_layer(num_blocks: int, cin: int, channels: int,
-                 stride: int = 1) -> nn.Sequential:
+                 stride: int = 1, fold_bn: bool = False) -> nn.Sequential:
     """`make_resnet_layers`: the first block projects the identity and
     carries the stride; the rest are plain."""
-    blocks = [ResNetBlock(cin, channels, stride, project_identity=True)]
-    blocks += [ResNetBlock(channels, channels) for _ in range(1, num_blocks)]
+    blocks = [ResNetBlock(cin, channels, stride, project_identity=True,
+                          fold_bn=fold_bn)]
+    blocks += [ResNetBlock(channels, channels, fold_bn=fold_bn)
+               for _ in range(1, num_blocks)]
     return nn.Sequential(*blocks)

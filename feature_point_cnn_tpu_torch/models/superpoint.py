@@ -13,6 +13,11 @@ promotes its BatchNorm to float32 on the JAX side.  A serving model stores
 the convolution weights in bf16; a training model (``float32_params=True``)
 keeps float32 master parameters and casts them at each forward, as the JAX
 step does (`train/steps.py:15`).
+
+``config.fold_bn`` builds the serving topology (`superpoint.py:43-63` of
+the JAX package): convolutions with a bias, no BatchNorm; load it with
+`models/fold.py::fold_batchnorm` of a live-BN ``state_dict``.  It cannot
+train.
 """
 
 from __future__ import annotations
@@ -24,9 +29,9 @@ from torch import nn
 
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
 from feature_point_cnn_tpu_torch.models.blocks import (
-    BatchNorm2d,
     Conv2d,
     ConvTranspose2d,
+    batch_norm,
     resnet_layer,
 )
 from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
@@ -38,12 +43,12 @@ class Encoder(nn.Module):
     """conv7x7/2(3->64)+BN+ReLU+maxpool3/2, then residual layers 64/1 and
     128/2."""
 
-    def __init__(self, cin: int):
+    def __init__(self, cin: int, fold_bn: bool = False):
         super().__init__()
-        self.conv1 = Conv2d(cin, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm2d(64)
-        self.layer1 = resnet_layer(2, 64, 64, 1)
-        self.layer2 = resnet_layer(2, 64, 128, 2)
+        self.conv1 = Conv2d(cin, 64, 7, 2, 3, bias=fold_bn)
+        self.bn1 = batch_norm(64, fold_bn)
+        self.layer1 = resnet_layer(2, 64, 64, 1, fold_bn)
+        self.layer2 = resnet_layer(2, 64, 128, 2, fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.conv1(x)))
@@ -55,9 +60,9 @@ class Detector(nn.Module):
     """Residual layer 128 -> 65 logits; its input is the embedding the
     descriptor head consumes."""
 
-    def __init__(self):
+    def __init__(self, fold_bn: bool = False):
         super().__init__()
-        self.layer = resnet_layer(2, 128, 65, 1)
+        self.layer = resnet_layer(2, 128, 65, 1, fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer(x)
@@ -67,14 +72,14 @@ class Descriptor(nn.Module):
     """128 -> 256/2 residual layer, transposed conv back to 1/8 resolution,
     concat with the detector embedding, residual layer -> D."""
 
-    def __init__(self, descriptor_dim: int):
+    def __init__(self, descriptor_dim: int, fold_bn: bool = False):
         super().__init__()
-        self.layer_in = resnet_layer(2, 128, 256, 2)
+        self.layer_in = resnet_layer(2, 128, 256, 2, fold_bn)
         self.up_sample = ConvTranspose2d(
             256, 128, 3, stride=2, padding=1, output_padding=1
         )
-        self.bn = BatchNorm2d(128)
-        self.layer_out = resnet_layer(2, 256, descriptor_dim, 1)
+        self.bn = batch_norm(128, fold_bn)
+        self.layer_out = resnet_layer(2, 256, descriptor_dim, 1, fold_bn)
 
     def forward(self, x: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn(self.up_sample(self.layer_in(x))))
@@ -91,15 +96,22 @@ class SuperPoint(nn.Module):
                  float32_params: bool = False):
         super().__init__()
         self.config = config
-        self.encoder = Encoder(config.image_channels)
-        self.detector = Detector()
-        self.descriptor = Descriptor(config.descriptor_dim)
+        fold = config.fold_bn
+        self.encoder = Encoder(config.image_channels, fold)
+        self.detector = Detector(fold)
+        self.descriptor = Descriptor(config.descriptor_dim, fold)
         self.reset_parameters(generator)
         self.compute_dtype = _DTYPES[config.compute_dtype]
         if self.compute_dtype != torch.float32 and not float32_params:
             for m in self.modules():
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                     m.to(self.compute_dtype)
+
+    def train(self, mode: bool = True) -> "SuperPoint":
+        if mode and self.config.fold_bn:
+            raise ValueError("a fold_bn model has no BatchNorm to train; "
+                             "train the live-BN model and fold it at load")
+        return super().train(mode)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:

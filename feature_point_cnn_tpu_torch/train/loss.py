@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
+from feature_point_cnn_tpu_torch.device import constant
 from feature_point_cnn_tpu_torch.geometry.homography import warp_points
 from feature_point_cnn_tpu_torch.ops.kernels import use_kernel
 from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
@@ -190,8 +191,7 @@ def descriptor_mse_loss(
     centers = _cell_centers(hc, wc, cell, desc.device)
     warped_centers = warp_points(centers, homographies)        # (B, N, 2)
 
-    limit = torch.tensor([hc * cell, wc * cell], dtype=torch.float32,
-                         device=desc.device) - 1.0
+    limit = constant((hc * cell, wc * cell), desc.device) - 1.0
     inlier = ((warped_centers >= 0.0) & (warped_centers <= limit)).all(dim=-1)
     cell_idx = ((warped_centers - cell // 2) / cell).to(torch.int64)
     cy = cell_idx[..., 0].clamp(0, hc - 1)

@@ -92,6 +92,12 @@ class Optimizer:
         self.schedule = make_schedule(config, total_steps)
         dev = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        # device constants made here, so a CUDA graph of the step copies
+        # nothing from the host
+        self._b1 = torch.tensor(config.adam_beta1, device=dev)
+        self._b2 = torch.tensor(config.adam_beta2, device=dev)
+        self._lr = (None if callable(self.schedule) else
+                    torch.tensor(self.schedule, dtype=torch.float32, device=dev))
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.accum_k = max(int(config.grad_accum_steps), 1)
@@ -100,10 +106,9 @@ class Optimizer:
 
     def learning_rate(self) -> torch.Tensor:
         """The rate the next update will use."""
-        lr = self.schedule
-        if callable(lr):
-            return lr(self.count)
-        return torch.tensor(lr, dtype=torch.float32, device=self.count.device)
+        if self._lr is None:
+            return self.schedule(self.count)
+        return self._lr
 
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
@@ -151,8 +156,8 @@ class Optimizer:
 
         lr = torch.where(finite, self.learning_rate(), 0.0)
         t = (self.count + 1).to(torch.float32)
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, device=t.device), t)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, device=t.device), t)
+        bc1 = 1.0 - torch.pow(self._b1, t)
+        bc2 = 1.0 - torch.pow(self._b2, t)
         denom = torch._foreach_mul(self.nu, 1.0 / bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, cfg.adam_eps)

@@ -1,44 +1,70 @@
-"""Training loop: epochs, checkpoint/resume, metrics
+"""Training loop: epochs, checkpoint/resume, metrics and summaries
 (`feature_point_cnn_tpu/train/trainer.py`).
 
-One process, one device.  Not ported yet: the device mesh, the
-device-resident loader with its fused and scanned dispatch, the metric
-writer's summaries and the profiling windows.
+One process, one device; the device mesh belongs to the parallel slice.
+
+With a `DeviceBatchLoader` the batch gather runs inside the step, from a
+``(B,)`` index on the device, as the JAX package's fused step does, and
+``config.train_steps_per_call = k`` runs k optimizer steps a host call with
+their metrics stacked ``(k, ...)`` (`_train_epoch_scanned`,
+`trainer.py:306-390`).  On the card those k steps are replays of a CUDA
+graph of ONE whole step (gather, labels, augmentation, forward, loss with
+the descriptor-loss kernels, backward, update), each replay after the
+step's generator is reseeded with ``(seed, epoch, index)``: a graph of k
+steps would replay one seed with running Philox offsets, while one graph a
+step draws exactly what an eager step of the same index draws.  On the CPU
+the same call runs the k steps eagerly.  A failed capture raises; nothing
+falls back to eager steps.  A tail of fewer than k steps runs single eager
+steps, as in JAX.
+
+Summaries (`utils/summary.py`): train and test scalars, a model table, BN-
+free parameter histograms and a keypoint-overlay image through the serving
+extract (the decode and NMS kernels on the card); a summary that fails
+never stops training.  ``FPC_PROFILE_DIR`` traces steps 5-15 of epoch 0.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
-from feature_point_cnn_tpu_torch.data.datasets import BatchLoader
+from feature_point_cnn_tpu_torch.data.device_store import DeviceBatchLoader
 from feature_point_cnn_tpu_torch.device import resolve_device
 from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
 from feature_point_cnn_tpu_torch.train import steps as S
 from feature_point_cnn_tpu_torch.train.optimizer import make_optimizer
 from feature_point_cnn_tpu_torch.utils import checkpoint as ckpt
+from feature_point_cnn_tpu_torch.utils import profiling
+from feature_point_cnn_tpu_torch.utils.summary import MetricWriter
 from feature_point_cnn_tpu_torch.utils.weights import load_variables, save_weights
+
+Metrics = Dict[str, torch.Tensor]
 
 
 class Trainer:
     """Phase-agnostic trainer; ``phase`` is ``"magicpoint"`` or
-    ``"superpoint"``.  ``device=None`` means ``cuda``."""
+    ``"superpoint"``.  ``train_loader``: a `BatchLoader` (host batches) or
+    a `DeviceBatchLoader` (the gather fused into the step).  ``device=None``
+    means ``cuda``."""
 
     def __init__(
         self,
         config: SuperPointConfig,
         phase: str,
-        train_loader: BatchLoader,
-        test_loader: Optional[BatchLoader],
+        train_loader,
+        test_loader,
         checkpoint_dir: str,
         magicpoint_checkpoint_dir: Optional[str] = None,
         homo_config: HomographyConfig = HomographyConfig(),
         seed: int = 0,
         device=None,
+        write_statistics: bool = True,
         log_every: int = 50,
         snapshot_path: Optional[str] = None,
     ):
@@ -54,6 +80,10 @@ class Trainer:
         self.log_every = log_every
         self.snapshot_path = snapshot_path
         self.gen = torch.Generator(device=self.device)
+        self._fused_loader = isinstance(train_loader, DeviceBatchLoader)
+        if self._fused_loader and train_loader.device != self.device:
+            raise ValueError(f"the loader's split is on {train_loader.device}, "
+                             f"the trainer runs on {self.device}")
 
         model = SuperPoint(
             config, generator=torch.Generator().manual_seed(seed * 1_000_003 + 17),
@@ -98,7 +128,13 @@ class Trainer:
             else:
                 print("[trainer] WARNING: no MagicPoint checkpoint found")
 
+        self.writer = MetricWriter(
+            f"{checkpoint_dir}/runs" if write_statistics else None)
+        self._graph_written = False
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+
     # ------------------------------------------------------------------
+    # steps
 
     def _seed(self, tag: int, index: int) -> torch.Generator:
         """The step's generator: a function of (seed, tag, index) only, so a
@@ -122,23 +158,225 @@ class Trainer:
         return S.superpoint_eval_step(
             self.state, batch, gen, config=self.config, homo_config=self.homo_config)
 
+    def _fused_step(self, idx: torch.Tensor, gen: torch.Generator) -> Metrics:
+        """Gather the batch of ``idx`` on the device, then one train step."""
+        L = self.train_loader
+        batch = L.gather_fn()(L.images, L.points, L.counts, idx)
+        return self._train_step(batch, gen)[1]
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Everything a step changes in place: parameters, BatchNorm
+        statistics, the optimizer's moments and count."""
+        opt = self.state.optimizer
+        return [*self.state.model.parameters(), *self.state.model.buffers(),
+                *opt.mu, *opt.nu, opt.count]
+
+    def _capture(self) -> None:
+        """Capture one fused step in a CUDA graph.  Two eager warm-up steps
+        on a side stream first (cuBLAS/cuDNN set-up, the kernels' libraries,
+        every cached device constant), then the state is put back as it was,
+        so the warm-up leaves no trace."""
+        if self.config.grad_accum_steps > 1:
+            raise ValueError("a CUDA graph of the step cannot hold gradient "
+                             "accumulation (its update depends on a host "
+                             "counter); use train_steps_per_call=1")
+        L = self.train_loader
+        self._static_idx = torch.arange(L.batch_size, dtype=torch.int32,
+                                        device=self.device)
+        tensors = self._state_tensors()
+        saved = [t.detach().clone() for t in tensors]
+        step0 = self.state.step
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._fused_step(self._static_idx, self._seed(0, 0))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        del saved
+        self.state.model.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        # the replays draw from the generator's state at replay time
+        graph.register_generator_state(self.gen)
+        self._seed(0, 0)
+        with torch.cuda.graph(graph):
+            metrics = self._fused_step(self._static_idx, self.gen)
+            self._static_names = list(metrics)
+            self._static_metrics = torch.stack(
+                [metrics[k].to(torch.float32) for k in self._static_names])
+        self.state.step = step0
+        self._graph = graph
+
+    def train_steps(self, idxs: List[torch.Tensor], epoch: int,
+                    first: int) -> Metrics:
+        """``len(idxs)`` optimizer steps in one host call (the fused loader
+        only): step ``first + j`` gathers ``idxs[j]`` and draws from
+        ``(seed, epoch, first + j)``.  On the card they are replays of the
+        captured step; on the CPU eager steps.  Returns the metrics stacked
+        ``(len(idxs),)``, still on the device."""
+        if not self._fused_loader:
+            raise ValueError("train_steps needs a DeviceBatchLoader")
+        if self.device.type != "cuda":
+            out = [self._fused_step(idx, self._seed(epoch, first + j))
+                   for j, idx in enumerate(idxs)]
+            return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+        if self._graph is None:
+            self._capture()
+        rows = torch.empty((len(idxs), len(self._static_names)),
+                           dtype=torch.float32, device=self.device)
+        for j, idx in enumerate(idxs):
+            self._static_idx.copy_(idx)
+            self._seed(epoch, first + j)
+            self._graph.replay()
+            rows[j].copy_(self._static_metrics)
+        self.state.step += len(idxs)
+        return {k: rows[:, i] for i, k in enumerate(self._static_names)}
+
+    # ------------------------------------------------------------------
+    # summaries
+
+    def _write_model_table(self) -> None:
+        """The model table at train start, in place of the JAX trainer's
+        module table and StableHLO text: each module with its parameter
+        shapes and counts, then the module tree."""
+        self._graph_written = True
+        model = self.state.model
+        rows = [f"{'module':60s} {'type':16s} {'parameters':>10s}  shapes"]
+        for name, mod in model.named_modules():
+            params = list(mod.named_parameters(recurse=False))
+            if not params:
+                continue
+            n = sum(p.numel() for _, p in params)
+            shapes = ", ".join(f"{k} {tuple(p.shape)}" for k, p in params)
+            rows.append(f"{name:60s} {type(mod).__name__:16s} {n:10d}  {shapes}")
+        total = sum(p.numel() for p in model.parameters())
+        rows.append(f"total parameters {total}")
+        self.writer.text(f"model/{self.phase}_table",
+                         "\n".join(rows) + "\n\n" + str(model))
+
+    def _write_param_histograms(self, step: int) -> None:
+        """Parameter histograms, BatchNorm excluded."""
+        model = self.state.model
+        bn = {id(p) for m in model.modules() if isinstance(m, nn.BatchNorm2d)
+              for p in m.parameters()}
+        for name, p in model.named_parameters():
+            if id(p) not in bn:
+                self.writer.histogram(f"params/{name}",
+                                      p.detach().float().cpu().numpy(), step)
+
+    @torch.no_grad()
+    def _write_image_summary(self, batch, step: int) -> None:
+        """Keypoint overlay of the first item: the model's keypoints through
+        the serving extract (decode and NMS kernels on the card) in red, the
+        labels in green."""
+        from feature_point_cnn_tpu_torch.inference.wrapper import extract_fn
+        from feature_point_cnn_tpu_torch.ops.detection import extract_keypoints
+        from feature_point_cnn_tpu_torch.ops.labels import (
+            make_points_labels_batch, make_prob_map_from_labels)
+        from feature_point_cnn_tpu_torch.utils.summary import keypoint_overlay
+
+        cfg = self.config
+        img = S._prep_images(batch["image"][:1], cfg).to(torch.float32)
+        model = self.state.model.eval()
+        try:
+            kp, _ = extract_fn(model, img, cfg)
+        finally:
+            model.train()
+
+        def yx(k):
+            v = k.valid[0]
+            return torch.stack([k.y[0][v], k.x[0][v]], -1).cpu().numpy()
+
+        labels = make_points_labels_batch(
+            batch["points"][:1], batch["points_valid"][:1], self._seed(999, step),
+            img.shape[1], img.shape[2], cfg.cell)
+        true_prob = make_prob_map_from_labels(labels, cfg.cell)
+        tkp = extract_keypoints(true_prob, cfg.replace(confidence_thresh=0.5))
+        vis = keypoint_overlay(img[0].cpu().numpy(), yx(kp), yx(tkp))
+        self.writer.image(f"detector/{self.phase}", vis, step)
+
+    def _log(self, metrics: Metrics, epoch: int, steps_done: int, t0: float,
+             logged: list, summary_batch) -> None:
+        """Read the metrics (a device sync) at a logging point: scalars and
+        the printed line.  ``summary_batch() -> batch or None``: a batch
+        asks for the image summary and the histograms too (every ``4 *
+        log_every`` steps)."""
+        m = {k: float(v) for k, v in metrics.items()}
+        m["lr"] = float(self.state.optimizer.learning_rate())
+        logged.append(m)
+        step = self.state.step
+        for k, v in m.items():
+            self.writer.scalar(f"train/{k}", v, step)
+        batch = summary_batch()
+        if batch is not None:
+            try:  # summaries must never stop training
+                self._write_image_summary(batch, step)
+                self._write_param_histograms(step)
+            except Exception as e:
+                print(f"[trainer] summary failed: {e}")
+        rate = steps_done * self.train_loader.batch_size / (time.time() - t0)
+        print(f"[{self.phase}] epoch {epoch} step {steps_done}/"
+              f"{len(self.train_loader)} loss {m['loss']:.4f} ({rate:.1f} img/s)")
+
+    # ------------------------------------------------------------------
+    # loops
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
-        logged = []
+        logged: list = []
         t0 = time.time()
-        for i, item in enumerate(self.train_loader.epoch(epoch)):
-            _, metrics = self._train_step(self._to_device(item), self._seed(epoch, i))
-            # fetch metrics (a device sync) only at logging points
-            if (i + 1) % self.log_every == 0 or i == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                m["lr"] = float(self.state.optimizer.learning_rate())
-                logged.append(m)
-                rate = (i + 1) * self.train_loader.batch_size / (time.time() - t0)
-                print(f"[{self.phase}] epoch {epoch} step {i + 1}/"
-                      f"{len(self.train_loader)} loss {m['loss']:.4f} "
-                      f"({rate:.1f} img/s)")
+        if not self._graph_written and self.writer._dir is not None:
+            try:
+                self._write_model_table()
+            except Exception as e:
+                self._graph_written = True
+                print(f"[trainer] model-table summary failed: {e}")
+        window = profiling.StepTraceWindow(
+            os.environ.get("FPC_PROFILE_DIR", "") if epoch == 0 else "")
+        try:
+            if self._fused_loader:
+                self._train_epoch_fused(epoch, t0, logged, window)
+            else:
+                for i, item in enumerate(self.train_loader.epoch(epoch)):
+                    window.tick(i)
+                    batch = self._to_device(item)
+                    with profiling.annotate(f"{self.phase}_train_step"):
+                        _, metrics = self._train_step(batch, self._seed(epoch, i))
+                    if (i + 1) % self.log_every == 0 or i == 0:
+                        self._log(metrics, epoch, i + 1, t0, logged,
+                                  lambda: batch
+                                  if (i + 1) % (4 * self.log_every) == 0 else None)
+        finally:
+            window.close()
         if not logged:
             return {}
         return {k: float(np.mean([m[k] for m in logged])) for k in logged[0]}
+
+    def _train_epoch_fused(self, epoch: int, t0: float, logged: list,
+                           window: profiling.StepTraceWindow) -> None:
+        """The epoch at ``train_steps_per_call`` granularity: whole calls of
+        k steps, then the tail as single steps.  Logs the last step of a
+        call that crosses a logging point."""
+        k = self.config.train_steps_per_call
+        idxs = list(self.train_loader.epoch_index_arrays(epoch))
+        done = 0
+        while done < len(idxs):
+            window.tick(done)
+            n = k if len(idxs) - done >= k else 1
+            chunk = idxs[done:done + n]
+            with profiling.annotate(f"{self.phase}_train_call"):
+                if n == 1:
+                    metrics = self._fused_step(chunk[0], self._seed(epoch, done))
+                else:
+                    metrics = {key: v[-1] for key, v in
+                               self.train_steps(chunk, epoch, done).items()}
+            done += n
+            if done % self.log_every < n or done == n:
+                last = chunk[-1]
+                self._log(metrics, epoch, done, t0, logged,
+                          lambda: self.train_loader.materialize(last)
+                          if done % (4 * self.log_every) < n else None)
 
     def evaluate(self, epoch: int) -> Dict[str, float]:
         if self.test_loader is None:
@@ -152,12 +390,16 @@ class Trainer:
         for i, batch in enumerate(self.test_loader.epoch(0)):
             if max_batches and i >= max_batches:
                 break
-            metrics = self._eval_step(self._to_device(batch),
-                                      self._seed(10_000 + epoch, i))
+            if not isinstance(self.test_loader, DeviceBatchLoader):
+                batch = self._to_device(batch)
+            metrics = self._eval_step(batch, self._seed(10_000 + epoch, i))
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
-        return {k: v / max(n, 1) for k, v in sums.items()}
+        out = {k: v / max(n, 1) for k, v in sums.items()}
+        for k, v in out.items():
+            self.writer.scalar(f"test/{k}", v, epoch)
+        return out
 
     def save(self, epoch: int) -> None:
         ckpt.save_state(self.manager, epoch, {
@@ -186,3 +428,4 @@ class Trainer:
                 print(f"[{self.phase}] epoch {epoch} test "
                       + " ".join(f"{k}={v:.4f}" for k, v in test.items()))
             self.save(epoch)
+        self.writer.close()

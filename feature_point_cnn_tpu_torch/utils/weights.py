@@ -84,9 +84,13 @@ def _t(a) -> torch.Tensor:
 
 def _conv(sd: dict, name: str, p: Mapping) -> None:
     sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:                       # a folded tree's conv
+        sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def _bn(sd: dict, name: str, p: Mapping, s: Mapping) -> None:
+    if p is None:                         # folded away
+        return
     sd[f"{name}.weight"] = _t(p["scale"])
     sd[f"{name}.bias"] = _t(p["bias"])
     sd[f"{name}.running_mean"] = _t(s["mean"])
@@ -99,38 +103,42 @@ def _layer(sd: dict, name: str, p: Mapping, s: Mapping) -> None:
     identity is the reference's ``identity_downsample`` Sequential."""
     i = 0
     while f"block{i}" in p:
-        bp, bs, pre = p[f"block{i}"], s[f"block{i}"], f"{name}.{i}"
+        bp, bs, pre = p[f"block{i}"], s.get(f"block{i}", {}), f"{name}.{i}"
         _conv(sd, f"{pre}.conv1", bp["conv1"])
-        _bn(sd, f"{pre}.bn1", bp["bn1"], bs["bn1"])
+        _bn(sd, f"{pre}.bn1", bp.get("bn1"), bs.get("bn1"))
         _conv(sd, f"{pre}.conv2", bp["conv2"])
-        _bn(sd, f"{pre}.bn2", bp["bn2"], bs["bn2"])
+        _bn(sd, f"{pre}.bn2", bp.get("bn2"), bs.get("bn2"))
         if "identity_conv" in bp:
             _conv(sd, f"{pre}.identity_downsample.0", bp["identity_conv"])
-            _bn(sd, f"{pre}.identity_downsample.1", bp["identity_bn"],
-                bs["identity_bn"])
+            _bn(sd, f"{pre}.identity_downsample.1", bp.get("identity_bn"),
+                bs.get("identity_bn"))
         i += 1
 
 
 def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of the ResNet SuperPoint -> a CPU
-    float32 ``state_dict`` under the reference's PyTorch names."""
-    p, s = variables["params"], variables["batch_stats"]
+    float32 ``state_dict`` under the reference's PyTorch names.  A folded
+    tree (JAX's ``fold_batchnorm``: ``{"params"}`` alone, conv kernels with
+    biases) gives the ``fold_bn=True`` model's ``state_dict``."""
+    p, s = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
-    enc_p, enc_s = p["encoder"], s["encoder"]
+    enc_p, enc_s = p["encoder"], s.get("encoder", {})
     _conv(sd, "encoder.conv1", enc_p["conv1"])
-    _bn(sd, "encoder.bn1", enc_p["bn1"], enc_s["bn1"])
+    _bn(sd, "encoder.bn1", enc_p.get("bn1"), enc_s.get("bn1"))
     for layer in ("layer1", "layer2"):
-        _layer(sd, f"encoder.{layer}", enc_p[layer], enc_s[layer])
-    _layer(sd, "detector.layer", p["detector"]["layer"], s["detector"]["layer"])
-    dsc_p, dsc_s = p["descriptor"], s["descriptor"]
-    _layer(sd, "descriptor.layer_in", dsc_p["layer_in"], dsc_s["layer_in"])
+        _layer(sd, f"encoder.{layer}", enc_p[layer], enc_s.get(layer, {}))
+    _layer(sd, "detector.layer", p["detector"]["layer"],
+           s.get("detector", {}).get("layer", {}))
+    dsc_p, dsc_s = p["descriptor"], s.get("descriptor", {})
+    _layer(sd, "descriptor.layer_in", dsc_p["layer_in"], dsc_s.get("layer_in", {}))
     up = dsc_p["up_sample"]
     sd["descriptor.up_sample.weight"] = _t(
         np.asarray(up["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
     )
     sd["descriptor.up_sample.bias"] = _t(up["bias"])
-    _bn(sd, "descriptor.bn", dsc_p["bn"], dsc_s["bn"])
-    _layer(sd, "descriptor.layer_out", dsc_p["layer_out"], dsc_s["layer_out"])
+    _bn(sd, "descriptor.bn", dsc_p.get("bn"), dsc_s.get("bn"))
+    _layer(sd, "descriptor.layer_out", dsc_p["layer_out"],
+           dsc_s.get("layer_out", {}))
     return sd
 
 

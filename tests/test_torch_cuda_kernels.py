@@ -21,7 +21,11 @@ products of split operands on the tensor cores, float32-grade).  The shapes
 cross every edge of the kernels' tiling (N = 195 is 128 + 64 + 3, D = 8 is
 one k-step, D = 128 the widest, N = 4800 is a 480x640 image's cells; D = 12,
 100 and 5 are widths the wrapper zero-pads to whole k-steps); D = 136 is
-beyond the kernels' limit and raises.
+beyond the kernels' limit and raises.  The training data path: k = 3
+steps a call as replays of the captured CUDA graph of the step against
+eager steps, float32, TF32 off, deterministic cuDNN, parameters within
+rtol 2e-4 + atol 2e-5 (measured equal); the folded frontend against live
+BatchNorm, prob maps within 1e-5 and the same keypoints.
 """
 
 import numpy as np
@@ -222,3 +226,92 @@ def test_descriptor_loss_kernel_rejects_what_it_does_not_take(rng):
     wide = _desc_loss_inputs(rng, 1, 4, 4, 136)     # D beyond the kernels' 128
     with pytest.raises(ValueError):
         hinge_descriptor_loss_cuda(*wide, 250.0, 1.0, 0.2, 8)
+
+
+# ---------------------------------------------------------------------------
+# the training data path: k steps a call as CUDA graph replays, and the
+# BatchNorm fold of the serving model
+# ---------------------------------------------------------------------------
+
+def _packed_split(tmp_path, n: int, h: int, w: int, seed: int = 0):
+    """``n`` polygon scenes with their corners, written as npz items and
+    packed; returns the `PackedPointDataset`."""
+    from chip_smoke import write_scene_items
+    from feature_point_cnn_tpu_torch.data.packed import PackedPointDataset, pack_split
+
+    write_scene_items(tmp_path / "npz", seed, n, h, w)
+    pack_split(str(tmp_path / "npz"), str(tmp_path / "packed" / "train"))
+    return PackedPointDataset(str(tmp_path / "packed"), "train")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["magicpoint", "superpoint"])
+def test_graphed_steps_equal_eager_steps(rng, tmp_path, phase):
+    """k = 3 steps a call as replays of the captured step (7 batches: two
+    calls and a tail of one) against k = 1 eager steps, float32 with TF32
+    off: parameters within rtol 2e-4 + atol 2e-5; the descriptor-loss
+    wrappers were called inside the capture."""
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.data.device_store import DeviceBatchLoader
+    from feature_point_cnn_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's deterministic algorithms: both runs then take the same
+    # arithmetic, and what is compared is the graph, not atomics' order
+    torch.backends.cudnn.deterministic = True
+    ds = _packed_split(tmp_path, 14, 48, 64)
+    cfg = SuperPointConfig(compute_dtype="float32", train_image_size=(48, 64),
+                           batch_size=2, max_points=32, epochs=1,
+                           lr_schedule="constant")
+    loader = DeviceBatchLoader(ds, 2, cfg.max_points, device="cuda")
+    got = {}
+    for k in (1, 3):
+        t = Trainer(cfg.replace(train_steps_per_call=k), phase, loader, None,
+                    str(tmp_path / f"ck{k}"), device="cuda", log_every=1,
+                    write_statistics=False)
+        hinge_descriptor_loss_cuda.launches_fwd = 0
+        t.train_epoch(0)
+        torch.cuda.synchronize()
+        assert t.state.step == 7 and int(t.state.optimizer.count) == 7
+        assert (t._graph is not None) == (k > 1)
+        if phase == "superpoint":
+            # eager: once a step; graphed: 2 warm-up steps, the capture, the tail
+            assert hinge_descriptor_loss_cuda.launches_fwd == (7 if k == 1 else 4)
+        got[k] = {n: v.detach().clone() for n, v in t.state.model.state_dict().items()}
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    diff = {n: float((got[3][n].float() - v.float()).abs().max())
+            for n, v in got[1].items()}
+    print("max |graphed - eager| by tensor:", diff)
+    for name, v in got[1].items():
+        torch.testing.assert_close(got[3][name], v, rtol=2e-4, atol=2e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_folded_frontend_equals_live_bn_on_the_card(rng):
+    """The released weights folded at load against live BatchNorm, float32
+    with TF32 off: prob maps within 1e-5, the same keypoints."""
+    from chip_smoke import polygon_scene
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+    from feature_point_cnn_tpu_torch.utils.weights import released_path
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SuperPointConfig(compute_dtype="float32")
+    live = SuperPointFrontend(cfg, weights_path=released_path(), device="cuda")
+    fold = SuperPointFrontend(cfg.replace(fold_bn=True), weights_path=released_path(),
+                              device="cuda")
+    assert not any(isinstance(m, torch.nn.BatchNorm2d) for m in fold.model.modules())
+    imgs = np.stack([np.repeat(polygon_scene(rng, 240, 320)[..., None], 3, -1)
+                     for _ in range(2)])
+    x = torch.from_numpy(imgs).cuda()
+    with torch.inference_mode():
+        p_live, p_fold = live.model(x)[0], fold.model(x)[0]
+    torch.testing.assert_close(p_fold, p_live, rtol=0.0, atol=1e-5)
+    kl, _ = live.extract(x)
+    kf, _ = fold.extract(x)
+    assert torch.equal(kl.valid, kf.valid)
+    assert torch.equal(kl.y[kl.valid], kf.y[kf.valid])
+    assert torch.equal(kl.x[kl.valid], kf.x[kf.valid])
+    torch.backends.cudnn.allow_tf32 = True

@@ -17,6 +17,7 @@ only to keep the tests short.
 """
 
 import functools
+import sys
 
 import cv2
 import jax
@@ -224,13 +225,16 @@ def test_evaluate_pairs_matches_jax_on_the_same_homographies(monkeypatch):
     _assert_aggregates_close(got, want)
 
 
-def test_evaluate_pairs_samples_a_homography_per_pair_from_its_seed():
+def test_evaluate_pairs_samples_a_homography_per_pair_from_its_seed(monkeypatch):
     _, tfe = _frontends()
     img = np.repeat(polygon_scene(np.random.default_rng(1), 64, 96)[..., None], 3, -1)
     a = benchmark.evaluate_pairs(tfe, [img, img], HomographyConfig(**MILD), seed=3)
     b = benchmark.evaluate_pairs(tfe, [img, img], HomographyConfig(**MILD), seed=3)
     assert a == b and a["pairs"] == 2.0
-    with pytest.raises(NotImplementedError, match="synthetic"):
+    # the synthetic source draws with cv2: without it, an ImportError that
+    # says so before any model is built
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
         benchmark.main(["--source", "synthetic", "--device", "cpu"])
 
 
