@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, self-labeling and evaluation
-paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, self-labeling, evaluation,
+tracking and command-line paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -80,7 +80,25 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    replays; ``metrics.jsonl`` and the overlay image written (through the
    decode and NMS kernels); eager against graphed ms/step, images/s and
    busy share at bf16; `generate_dataset`'s images/s on the host where cv2
-   is installed.
+   is installed;
+12. tracking, bundle adjustment, VGG and the command line: `eval.tracking.
+   main` with the released weights at its defaults (240x320, K = 512, bf16)
+   on ``--source synthetic`` and on a polygon scene written as a BMP, 40
+   frames and 80 with ``--loops 2 --posegraph`` (on the polygon with a
+   96-px sweep, whose loop closures must lower the ATE; decode and NMS
+   once a frame); `Tracker.process` ms/frame with its extract apart, and a trace
+   of one call (one decode and one NMS launch); the 40-frame sequences at
+   float32 on the card against the CPU (ATE within 0.1 px + 5%, keyframes
+   within 1, frac_tracked within 0.05); `bundle_adjust` against
+   `dense_bundle_adjust_reference` at (P, L, M) = (6, 48, 4) (costs rtol
+   1e-4, poses and points 2e-4), then 10 iterations at P = 64, L = 16,384,
+   M = 4 (cost down 100x, within 5e-3 of the truth; ms an iteration, peak
+   memory); the VGG forward at 480x640 gray, B = 1 and 8, float32 against
+   the CPU (prob 1e-4) and ms/frame; `main.main` ``inference`` (60 frames),
+   ``train`` as MagicPoint on phase 11's packed split and then joint (the
+   descriptor-loss wrappers called), ``export --raw-weights`` (the ``.npz``
+   and the checkpoint directory give the same keypoints) and ``export``
+   without it (exits naming ROADMAP §1 item 7).
 
 The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
 and under ``b32`` at B = 32, the kernel's device time from a trace
@@ -95,7 +113,9 @@ aggregated maps).  ``launches_train_data`` counts each wrapper's calls in
 phase 11 (a CUDA graph replay calls no wrapper: the descriptor-loss rows
 count the eager steps, the warm-up and the capture, and
 ``graph_replay_kernels_traced`` gives the kernels a trace of one call of 4
-replays shows).
+replays shows); ``launches_tracking`` (rows 1-2) counts phase 12's tracking
+entry-point runs and ``launches_cli`` each wrapper's calls in phase 12's
+command line.
 
 It prints a ``{"kernels": [...]}`` line, the card's line again, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 and
@@ -958,9 +978,318 @@ def train_data_phase(seed: int, card: str, survey: dict) -> dict:
               f"{n / gen_s:.1f} images/s generated ({os.cpu_count()} cores)")
     else:
         print("train data generate_dataset: not run (cv2 is not installed here)")
-    shutil.rmtree(work)
+    shutil.rmtree(work / "generated", ignore_errors=True)
+    # the packed split stays for phase 12's command line, which removes it
     return {"launches": launches, "graph_launches": graph_launches,
-            "ms": ms, "busy": busy}
+            "ms": ms, "busy": busy, "work": work}
+
+
+TRACK_FRAMES = 40     # the tracking entry point's default sequence of phase 12
+BA_SMALL = (6, 48, 4)           # (P, L, M) held to the dense oracle
+BA_MAP = (64, 16_384, 4)        # a map a tracker builds: 10 iterations
+VGG_SHAPE = (480, 640)
+CLI_FRAMES = 60
+
+
+def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
+    """Phase 12: tracking through `eval.tracking.main`, bundle adjustment,
+    the VGG family and the command line (`main.main`), at full width."""
+    from feature_point_cnn_tpu_torch import main as cli
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.data.packed import pack_split
+    from feature_point_cnn_tpu_torch.eval import tracking as ev_tracking
+    from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+    from feature_point_cnn_tpu_torch.models.vgg_superpoint import (
+        VGG_CONFIG, VGGSuperPoint, init_vgg_superpoint)
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
+    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
+        hinge_descriptor_loss_cuda)
+    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
+    from feature_point_cnn_tpu_torch.slam.bundle import (
+        bundle_adjust, dense_bundle_adjust_reference, synthetic_ba_problem)
+    from feature_point_cnn_tpu_torch.slam.tracking import Tracker, frontend_extractor
+    from feature_point_cnn_tpu_torch.utils.weights import released_path
+
+    def counts():
+        return {"decode_threshold": decode_threshold_cuda.launches,
+                "grid_nms": grid_nms_cuda.launches,
+                "descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
+                "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
+
+    def zero_counts():
+        decode_threshold_cuda.launches = grid_nms_cuda.launches = 0
+        hinge_descriptor_loss_cuda.launches_fwd = 0
+        hinge_descriptor_loss_cuda.launches_bwd = 0
+
+    torch.backends.cudnn.allow_tf32 = True
+    weights = released_path()
+    th, tw = 240, 320
+    out: dict = {}
+
+    # ---- tracking: the entry point, bf16, K = 512 (its defaults) ----------
+    # on its synthetic default (one line-drawing scene: about a dozen
+    # keypoints, so the released model re-keys every frame) and on a
+    # polygon scene written as a BMP (about 140 keypoints); the polygon's
+    # pose-graph run sweeps 96 px, so that keyframes are promoted and the
+    # second loop closes on them
+    work = packed.parent
+    src = work / "track_src"
+    src.mkdir()
+    poly = polygon_scene(np.random.default_rng(seed + 130), th, tw)
+    write_bmp(src / "scene.bmp", np.repeat((poly[..., None] * 255).round().astype(np.uint8),
+                                           3, -1))
+    zero_counts()
+    track, frames_run = {}, 0
+    for source in ("synthetic", str(src)):
+        for extra in ([], ["--loops", "2", "--posegraph"] + (
+                [] if source == "synthetic" else ["--max-shift", "96"])):
+            n = TRACK_FRAMES * (2 if extra else 1)
+            t = time.perf_counter()
+            res = ev_tracking.main(["--weights-path", weights, "--source", source,
+                                    "--frames", str(n)] + extra)
+            torch.cuda.synchronize()
+            key = f"{'synthetic' if source == 'synthetic' else 'polygon_bmp'}_{n}" + (
+                "_posegraph" if extra else "")
+            res["seconds"] = time.perf_counter() - t
+            track[key] = res
+            frames_run += n
+            print(f"tracking main {key} ({Path(weights).name}, {th}x{tw}, K = 512, bf16; "
+                  f"the run builds its frontend) [{card}]: {json.dumps(res)}")
+            bad = [k for k, v in res.items() if not np.isfinite(v)]
+            check(not bad and res["frames"] == n, f"tracking {key}: finite results (not {bad})")
+            check(("posegraph_ate_rmse_px" in res) == bool(extra),
+                  f"tracking {key}: the pose-graph columns iff --posegraph")
+    loop = track[f"polygon_bmp_{2 * TRACK_FRAMES}_posegraph"]
+    check(loop["num_loop_closures"] > 0
+          and loop["posegraph_ate_rmse_px"] < loop["ate_rmse_px"],
+          "tracking: the polygon sweep's loop closures lower its ATE")
+    out["launches_tracking"] = counts()
+    print(f"tracking main: wrapper launches {out['launches_tracking']} over {frames_run} frames")
+    check(out["launches_tracking"]["decode_threshold"] == frames_run
+          and out["launches_tracking"]["grid_nms"] == frames_run,
+          "tracking: decode and NMS once a frame")
+    out["tracking"] = track
+
+    # Tracker.process timed: the whole frame, and its extract apart (a
+    # synchronise after the extract; match + RANSAC end in the frame's one
+    # host read)
+    cfg = SuperPointConfig(max_keypoints=512)
+    fe = SuperPointFrontend(cfg, weights_path=weights, device="cuda")
+    base = ev_tracking._base_image("synthetic", (th, tw))
+    poly3 = np.repeat(poly[..., None], 3, -1)
+    params = ev_tracking.smooth_trajectory(TRACK_FRAMES)
+    frames = ev_tracking.render_sequence(poly3, params, "cuda").unbind(0)
+    ext = frontend_extractor(fe)
+    ext_ms: list = []
+
+    def timed_extract(image):
+        t = time.perf_counter()
+        feats = ext(image)
+        torch.cuda.synchronize()
+        ext_ms.append((time.perf_counter() - t) * 1e3)
+        return feats
+
+    proc_ms = []
+    for rep in range(2):                       # the first pass warms up
+        tracker = Tracker(extract=timed_extract)
+        ext_ms.clear()
+        proc_ms = []
+        for fr in frames:
+            t = time.perf_counter()
+            tracker.process(fr)
+            proc_ms.append((time.perf_counter() - t) * 1e3)
+    proc, extr = float(np.median(proc_ms[1:])), float(np.median(ext_ms[1:]))
+    out["tracking_ms"] = {"process": proc, "extract": extr, "match_ransac": proc - extr}
+    print(f"tracking Tracker.process on the polygon scene: {proc:.3f} ms/frame median over "
+          f"{TRACK_FRAMES - 1} tracked frames, of which extract {extr:.3f} ms and "
+          f"match + RANSAC + the host read {proc - extr:.3f} ms [{card}]")
+    traced = traced_launches(lambda: tracker.process(frames[5]),
+                             ("decode_row_kernel", "grid_nms_kernel"))
+    print(f"tracking: kernels in a traced Tracker.process {traced}")
+    check(traced == {"decode_row_kernel": 1, "grid_nms_kernel": 1},
+          "one decode and one NMS launch a Tracker.process")
+    prof_window(lambda: tracker.process(frames[7]), 5, 1, "Tracker.process", "frame", card)
+    # where the host's time goes: operators by their own CPU time a frame
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(5):
+            tracker.process(frames[9])
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+    print("tracking Tracker.process host time by operator, ms/frame (calls/frame): " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 5e3:.3f} ({e.count // 5})" for e in ops))
+    del fe, frames
+
+    # the 40-frame sequence at float32 (TF32 off) on the card and on the CPU,
+    # each frame's RANSAC drawing from the same CPU generator
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.replace(compute_dtype="float32")
+    f32 = {}
+    fes = {where: SuperPointFrontend(cfg32, weights_path=weights, device=dev)
+           for where, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    for name, image in (("synthetic", base), ("polygon_bmp", poly3)):
+        for where, fe in fes.items():
+            t = time.perf_counter()
+            f32[f"{name}_{where}"] = r = ev_tracking.evaluate_tracking(
+                frontend_extractor(fe), image, n_frames=TRACK_FRAMES, device=fe.device)
+            print(f"tracking float32 {name} on the {where}: {json.dumps(r)} "
+                  f"({time.perf_counter() - t:.2f} s)")
+        a, b = f32[f"{name}_card"], f32[f"{name}_cpu"]
+        check(abs(a["ate_rmse_px"] - b["ate_rmse_px"]) <= 0.1 + 0.05 * b["ate_rmse_px"]
+              and abs(a["num_keyframes"] - b["num_keyframes"]) <= 1
+              and abs(a["frac_tracked"] - b["frac_tracked"]) <= 0.05,
+              f"tracking float32 {name}: the card agrees with the CPU (ATE within "
+              f"0.1 px + 5%, keyframes within 1, frac_tracked within 0.05)")
+    out["tracking_float32"] = f32
+    del fes
+
+    # ---- bundle adjustment ------------------------------------------------
+    p_, l_, m_ = BA_SMALL
+    pc, _, _ = synthetic_ba_problem(np.random.default_rng(seed), p_, l_, m_)
+    p1, x1, c1 = bundle_adjust(pc, iters=5)
+    p2, x2, c2 = dense_bundle_adjust_reference(pc, iters=5)
+    ba_err = {"cost_rel": float(((c1 - c2).abs() / c2.abs()).max()),
+              "poses": float((p1 - p2).abs().max()), "points": float((x1 - x2).abs().max())}
+    print(f"bundle adjustment {BA_SMALL} on the card, Schur vs the dense oracle, "
+          f"5 iterations: {ba_err}")
+    check(ba_err["cost_rel"] <= 1e-4 and ba_err["poses"] <= 2e-4
+          and ba_err["points"] <= 2e-4,
+          "BA: Schur equals the dense oracle (costs rtol 1e-4, poses/points 2e-4)")
+    p_, l_, m_ = BA_MAP
+    t = time.perf_counter()
+    pc, true_poses, true_points = synthetic_ba_problem(
+        np.random.default_rng(seed + 1), p_, l_, m_, noise=1e-4, init_noise=0.05)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    check(pc.points.is_cuda, "BA: synthetic_ba_problem puts the problem on the card")
+    bundle_adjust(pc, iters=2)                 # warm-up
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    poses, points, costs = bundle_adjust(pc, iters=10)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
+    costs = costs.cpu().numpy()
+    pose_err = float(np.abs(poses.cpu().numpy() - true_poses).max())
+    # a landmark whose slots were all dropped is unobservable: it keeps its
+    # initial position, and only the observed ones can reach the truth
+    observed = pc.obs_valid.any(1).cpu().numpy()
+    pts = points.cpu().numpy()
+    point_err = float(np.abs(pts[observed] - true_points[observed]).max())
+    unobserved_moved = float(np.abs(pts[~observed] - pc.points.cpu().numpy()[~observed]).max(
+        initial=0.0))
+    out["ba"] = {"shape": list(BA_MAP), "iters": 10,
+                 "ms_per_iter": start.elapsed_time(end) / 10, "wall_ms_per_iter": wall / 10,
+                 "peak_mib": peak, "cost_first": float(costs[0]), "cost_last": float(costs[-1]),
+                 "pose_err": pose_err, "point_err": point_err,
+                 "unobserved_points": int((~observed).sum()),
+                 "unobserved_moved": unobserved_moved, "host_gen_s": gen_s,
+                 "small_vs_dense": ba_err}
+    print(f"bundle adjustment P = {p_}, L = {l_}, M = {m_}: {out['ba']['ms_per_iter']:.3f} "
+          f"ms an iteration (events; wall {wall / 10:.3f}), peak {peak:.1f} MiB above the "
+          f"problem, cost {costs[0]:.4g} -> {costs[-1]:.4g}, max |pose - truth| "
+          f"{pose_err:.2e}, max |point - truth| {point_err:.2e} over the "
+          f"{int(observed.sum())} observed landmarks ({int((~observed).sum())} with every "
+          f"slot dropped moved {unobserved_moved:.2e}); problem drawn and moved to the card in "
+          f"{gen_s:.2f} s [{card}]")
+    check(costs[-1] < 1e-2 * costs[0], "BA: the cost falls by 100x")
+    check(pose_err <= 5e-3 and point_err <= 5e-3,
+          "BA: poses and the observed points within 5e-3 of the truth")
+    check(unobserved_moved == 0.0, "BA: a landmark with no valid observation stays put")
+    del pc, poses, points
+
+    # ---- VGG: float32 card against the CPU, then ms/frame ----------------
+    vcfg = VGG_CONFIG.replace(compute_dtype="float32")
+    vgg = init_vgg_superpoint(torch.Generator().manual_seed(seed), vcfg, device="cuda").eval()
+    vgg_cpu = VGGSuperPoint(vcfg)
+    vgg_cpu.load_state_dict({k: v.cpu() for k, v in vgg.state_dict().items()})
+    rng = np.random.default_rng(seed + 120)
+    x8 = torch.from_numpy(np.stack([polygon_scene(rng, *VGG_SHAPE) for _ in range(8)])[..., None])
+    with torch.no_grad():
+        ref = vgg_cpu.eval()(x8)
+        x8c = x8.cuda()
+        vgg_err = {}
+        for b in (1, 8):
+            got = vgg(x8c[:b])
+            vgg_err[b] = {n: float((g.cpu() - r[:b]).abs().max())
+                          for n, g, r in zip(("prob", "desc", "logits"), got, ref)}
+        print(f"vgg float32 card vs CPU at {VGG_SHAPE}: {vgg_err}")
+        check(all(e["prob"] <= 1e-4 for e in vgg_err.values()),
+              "VGG: the card's prob map within 1e-4 of the CPU's")
+        torch.backends.cudnn.allow_tf32 = True
+        vgg_ms = {}
+        for dtype in ("float32", "bfloat16"):
+            m = VGGSuperPoint(VGG_CONFIG.replace(compute_dtype=dtype)).cuda().eval()
+            m.load_state_dict(vgg.state_dict())
+            for b in (1, 8):
+                vgg_ms[f"{dtype}_b{b}"] = event_ms(lambda: m(x8c[:b]), 20) / b
+        print(f"vgg forward ms/frame at {VGG_SHAPE} (float32 with TF32 convolutions, "
+              f"bf16): {json.dumps(vgg_ms)} [{card}]")
+    out["vgg"] = {"max_abs_err": vgg_err, "ms_per_frame": vgg_ms}
+    del vgg, vgg_cpu, m, x8c
+
+    # ---- the command line, in-process -------------------------------------
+    pack_split(str(work / "npz"), str(packed / "test"))
+    zero_counts()
+    t = time.perf_counter()
+    stats = cli.main(["inference", "--weights-path", weights, "--source", "synthetic",
+                      "--max-frames", str(CLI_FRAMES), "--no-show"])
+    inf_s = time.perf_counter() - t
+    c_inf = counts()
+    check(stats["frames"] == CLI_FRAMES and stats["mean_fps"] > 0,
+          f"cli inference: {CLI_FRAMES} frames at fps > 0 ({stats})")
+    check(c_inf["decode_threshold"] == CLI_FRAMES and c_inf["grid_nms"] == CLI_FRAMES,
+          "cli inference: decode and NMS once a frame")
+    print(f"cli inference ({Path(weights).name}, 480x640, K = 1024, bf16): {stats} in "
+          f"{inf_s:.2f} s [{card}]")
+    mp_dir, joint_dir = work / "cli_mp", work / "cli_joint"
+    t = time.perf_counter()
+    cli.main(["train", "--synthetic-path", str(packed), "--epochs", "1",
+              "--checkpoint-path", str(mp_dir)])
+    mp_s = time.perf_counter() - t
+    c_mp = counts()
+    fwd0, bwd0 = c_mp["descriptor_loss_fwd"], c_mp["descriptor_loss_bwd"]
+    t = time.perf_counter()
+    cli.main(["train", "--coco-path", str(packed), "--magic-point-weights", str(mp_dir),
+              "--epochs", "1", "--checkpoint-path", str(joint_dir)])
+    joint_s = time.perf_counter() - t
+    c_all = counts()
+    joint_calls = (c_all["descriptor_loss_fwd"] - fwd0, c_all["descriptor_loss_bwd"] - bwd0)
+    print(f"cli train: MagicPoint epoch in {mp_s:.2f} s, joint epoch in {joint_s:.2f} s "
+          f"(each builds its trainer and evaluates the test split); descriptor-loss "
+          f"wrapper calls in the joint run (fwd, bwd) {joint_calls} [{card}]")
+    check(joint_calls[0] > 0 and joint_calls[1] > 0,
+          "cli train: the joint branch called the descriptor-loss wrappers")
+    raw = work / "cli_export.npz"
+    cli.main(["export", "--weights-path", str(joint_dir), "--raw-weights", str(raw)])
+    torch.backends.cudnn.allow_tf32 = False
+    img = torch.from_numpy(np.repeat(polygon_scene(rng, th, tw)[None, ..., None], 3, -1))
+    kps = [SuperPointFrontend(cfg32, weights_path=str(w), device="cuda").extract(img)[0]
+           for w in (raw, joint_dir)]
+    torch.backends.cudnn.allow_tf32 = True
+    same = all(torch.equal(getattr(kps[0], f), getattr(kps[1], f))
+               for f in ("y", "x", "score", "valid"))
+    print(f"cli export: {raw.name} {raw.stat().st_size} bytes; float32 keypoints from the "
+          f".npz and from the checkpoint directory equal: {same} "
+          f"({int(kps[0].valid.sum())} valid)")
+    check(same, "cli export: the .npz and the directory give the same keypoints")
+    try:
+        cli.main(["export", "--weights-path", str(joint_dir)])
+        exited = ""
+    except SystemExit as e:
+        exited = str(e)
+    print(f"cli export without --raw-weights exits: {exited!r}")
+    check("item 7" in exited, "cli export without --raw-weights exits naming item 7")
+    out["launches_cli"] = counts()
+    out["cli"] = {"inference": stats, "inference_s": inf_s, "magicpoint_epoch_s": mp_s,
+                  "joint_epoch_s": joint_s, "joint_descriptor_loss_calls": joint_calls}
+    shutil.rmtree(work)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1587,14 +1916,22 @@ def main(argv=None) -> int:
 
     # ---- 11. the training data path ---------------------------------------
     td = train_data_phase(args.seed, card, survey)
+
+    # ---- 12. tracking, bundle adjustment, VGG and the command line --------
+    sc = tracking_ba_vgg_cli_phase(args.seed, card, td["work"] / "packed")
     for r in rows[:2]:
         r["launches_selflabel"] = sl["launches"][r["name"]]
         r["launches_eval"] = ev[r["name"]]
+        r["launches_tracking"] = sc["launches_tracking"][r["name"]]
         r["selflabel_shape"] = sl["shapes"][r["name"]]
     for r in rows:
         # wrapper calls of phase 11 (rows 1-2: the overlay's extract; rows
         # 3a/3b: eager steps, warm-up and capture; replays do not call them)
         r["launches_train_data"] = td["launches"][r["name"]]
+        # wrapper calls of phase 12's command line (inference, both trainings)
+        r["launches_cli"] = sc["launches_cli"][r["name"]]
+    print(json.dumps({"phase12": {k: v for k, v in sc.items()
+                                  if not k.startswith("launches")}}))
     for r in rows[2:]:
         r["graph_replay_kernels_traced"] = td["graph_launches"].get("superpoint")
     print(json.dumps({"kernels": rows}))

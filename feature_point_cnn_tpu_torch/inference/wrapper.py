@@ -5,13 +5,18 @@ Port of `feature_point_cnn_tpu/inference/wrapper.py`: `extract_fn`
 `run_with_homography_adaptation` (`:134-199`), and the packed frame program
 of ``export_pjrt`` (input prep `:298-307`, frame `:351-387`) as
 `SuperPointFrontend.frame`.  PyTorch runs eagerly, so there is nothing to
-export: the frame program is a method.  StableHLO/PJRT export and sharded
-extraction are not ported yet.
+export: the frame program is a method.  `load_state` is `load_variables`
+(`:77-95`): weights come from a ``weights/*.npz`` snapshot or from a
+directory of the port's checkpoints (`utils/checkpoint.py`); the JAX
+package's orbax directories need orbax, and with it JAX, so the port does
+not read them.  StableHLO/PJRT export (ROADMAP §1 item 7) and sharded
+extraction (item 5) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +41,7 @@ from feature_point_cnn_tpu_torch.selflabel.adaptation import (
     Generators,
     homography_adaptation,
 )
+from feature_point_cnn_tpu_torch.utils import checkpoint as ckpt
 from feature_point_cnn_tpu_torch.utils.weights import load_variables
 
 
@@ -100,6 +106,21 @@ def prep_images(images: torch.Tensor, channels: int) -> torch.Tensor:
     return images
 
 
+def load_state(weights_path: str) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """``(step, state_dict)`` on the CPU from a ``.npz`` snapshot (step 0)
+    or from the newest ``ckpt_<step>.pt`` of a checkpoint directory (its
+    ``"model"`` entry)."""
+    if str(weights_path).endswith(".npz"):
+        return 0, load_variables(weights_path, device="cpu")
+    if not Path(weights_path).is_dir():
+        raise FileNotFoundError(f"no .npz snapshot or checkpoint directory at "
+                                f"{weights_path}")
+    step, state = ckpt.restore_latest(ckpt.checkpoint_manager(weights_path))
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {weights_path}")
+    return step, state["model"]
+
+
 class SuperPointFrontend:
     """Holds the model on one device; ``device=None`` means ``cuda``."""
 
@@ -110,8 +131,9 @@ class SuperPointFrontend:
         seed: int = 0,
         device=None,
     ):
-        """``weights_path``: a ``weights/*.npz`` snapshot; without one the
-        weights are random, drawn from ``seed``.  With ``config.fold_bn``
+        """``weights_path``: a ``weights/*.npz`` snapshot or a checkpoint
+        directory (`load_state`); without one the weights are random, drawn
+        from ``seed``.  With ``config.fold_bn``
         the BatchNorms are folded into the convolutions here: snapshots
         always keep the live-BN layout (`wrapper.py:117-121`)."""
         self.config = config
@@ -121,7 +143,10 @@ class SuperPointFrontend:
         live = SuperPoint(config.replace(fold_bn=False, compute_dtype=(
             "float32" if config.fold_bn else config.compute_dtype)), generator=gen)
         if weights_path is not None:
-            live.load_state_dict(load_variables(weights_path, device="cpu"))
+            step, state = load_state(weights_path)
+            live.load_state_dict(state)
+            if not str(weights_path).endswith(".npz"):
+                print(f"[frontend] loaded checkpoint step {step} from {weights_path}")
         model = live
         if config.fold_bn:
             model = SuperPoint(config, generator=torch.Generator())

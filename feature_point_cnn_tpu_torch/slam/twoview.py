@@ -77,6 +77,14 @@ def _sym_transfer_error(h_flat: torch.Tensor, pts1_xy: torch.Tensor,
     return torch.linalg.vector_norm(proj - pts1_xy, dim=-1)
 
 
+def _gumbel_scores(gen: torch.Generator, iters: int, k: int,
+                   device: torch.device) -> torch.Tensor:
+    """``(iters, k)`` Gumbel scores on ``device``, drawn on the generator's
+    device."""
+    u = torch.rand((iters, k), generator=gen, device=gen.device).to(device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
 def ransac_homography(
     gen: torch.Generator,
     pts1_yx: torch.Tensor,
@@ -105,8 +113,7 @@ def ransac_homography(
 
     # `iters` minimal samples among the valid matches: Gumbel top-4 without
     # replacement per hypothesis
-    u = torch.rand((iters, k), generator=gen, device=gen.device).to(dev)
-    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    g = _gumbel_scores(gen, iters, k, dev)
     idx = torch.where(valid, g, -torch.inf).topk(4, dim=-1).indices   # (iters, 4)
 
     w = torch.zeros((iters, k), device=dev).scatter(1, idx, 1.0) * w_valid

@@ -14,7 +14,10 @@ PyTorch names, the inverse of the JAX package's checkpoint importer
   running_var``.
 
 `jax_variables_from_state_dict` is the way back, so trained parameters
-return to the ``.npz`` layout (`save_weights`).
+return to the ``.npz`` layout (`save_weights`).  The VGG family
+(`models/vgg_superpoint.py`: HWIO kernels with biases, no BatchNorm, the
+same names on both sides) goes across with `vgg_state_dict_from_jax_variables`
+and back with `jax_variables_from_vgg_state_dict`.
 """
 
 from __future__ import annotations
@@ -140,6 +143,29 @@ def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]
     _layer(sd, "descriptor.layer_out", dsc_p["layer_out"],
            dsc_s.get("layer_out", {}))
     return sd
+
+
+VGG_CONVS = tuple(f"encoder_conv{i}_{ab}" for i in range(4) for ab in "ab") + (
+    "detector_conv_a", "detector_conv_b", "descriptor_conv_a", "descriptor_conv_b")
+
+
+def vgg_state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``VGGSuperPoint`` variables (``{"params": {name: {kernel HWIO,
+    bias}}}``) -> the port's CPU float32 ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in VGG_CONVS:
+        _conv(sd, name, variables["params"][name])
+    return sd
+
+
+def jax_variables_from_vgg_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: a VGG ``state_dict`` -> ``{"params", "batch_stats"}`` of
+    float32 numpy arrays in the Flax layout (no BatchNorm: empty stats)."""
+    params = {}
+    for name in VGG_CONVS:
+        params[name] = _conv_back(sd, name)
+        params[name]["bias"] = _np(sd[f"{name}.bias"])
+    return {"params": params, "batch_stats": {}}
 
 
 def load_variables(path: str, device=None) -> Dict[str, torch.Tensor]:
