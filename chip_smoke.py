@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, self-labeling, evaluation,
-tracking and command-line paths on one CUDA card and check them.
+tracking, command-line and parallel paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -98,7 +98,35 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    ``train`` as MagicPoint on phase 11's packed split and then joint (the
    descriptor-loss wrappers called), ``export --raw-weights`` (the ``.npz``
    and the checkpoint directory give the same keypoints) and ``export``
-   without it (exits naming ROADMAP §1 item 7).
+   without it (exits naming ROADMAP §1 item 7);
+13. the parallel layer, its ranks processes of this script (``--parallel-
+   worker``; the kernels phase 1 built are loaded, not rebuilt), at float32,
+   TF32 off, cuDNN deterministic unless said.  Two ranks sharing the one
+   card over gloo: one joint `superpoint_train_step` at 240x320, global
+   batch 32 (16 a rank), fresh seeded parameters, with ``microbatch_steps``
+   1 and 2: loss within rtol 1e-5 of this process's step on the global
+   batch, gradients within atol 1e-3 + rtol 1e-2, parameters and BatchNorm
+   statistics bit-identical across the ranks, the descriptor-loss kernels
+   launched on each; a `Trainer` epoch on the item-sharded
+   `DeviceBatchLoader` over phase 11's packed split (global batches equal
+   the numpy reference order, rank 0 alone writes the checkpoint);
+   `extract_sharded` with the released weights at 480x640, B = 8 (each
+   rank's rows bit-equal to `extract` of those rows, the whole batch equal
+   to the B = 8 extract: keypoints exactly, descriptors 1e-5; decode and
+   NMS on each rank); `preprocess_folder(use_mesh=True)` on 32 of phase
+   9's scenes at batch 16 under phase 9's settings (bf16), equal to phase
+   9's files bit for bit; `bundle_adjust` over the mesh at P = 64, L =
+   16,384, M = 4 (costs rtol 1e-5, poses and points 1e-4 of one rank).
+   One rank over NCCL: a joint step from fresh parameters on the global
+   batch (loss rtol 1e-5 and gradients atol 1e-3 + rtol 1e-2 of this
+   process's step; the parameters' difference is Adam's first update of
+   the gradients' difference within rtol 2e-4 + atol 2e-5), then `Trainer`
+   epochs with ``train_steps_per_call`` 4 (graph replays with the step's
+   collectives captured) and 1 (eager) at Adam's epsilon 1, each within
+   rtol 2e-4 + atol 2e-5 of the other and the graphed one of this
+   process's non-distributed graphed epoch.  bf16 ms/step of the two-rank
+   step and of this process's step, printed as two processes sharing one
+   card, not scaling.
 
 The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
 and under ``b32`` at B = 32, the kernel's device time from a trace
@@ -115,7 +143,9 @@ count the eager steps, the warm-up and the capture, and
 ``graph_replay_kernels_traced`` gives the kernels a trace of one call of 4
 replays shows); ``launches_tracking`` (rows 1-2) counts phase 12's tracking
 entry-point runs and ``launches_cli`` each wrapper's calls in phase 12's
-command line.
+command line; ``launches_parallel`` each wrapper's calls in phase 13,
+summed over its processes (``launches_parallel_by_rank``: gloo rank 0,
+gloo rank 1, the NCCL rank), each counted from 0 before its path.
 
 It prints a ``{"kernels": [...]}`` line, the card's line again, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 and
@@ -257,6 +287,14 @@ class SceneDataset:
 
     def read(self, index: int):
         return self.items[index]
+
+
+def serving_frames(seed: int):
+    """Phase 4's keyframe and its 8 frames ``(8, H, W, 1)`` uint8: the
+    keyframe's scene shifted by SHIFT px, then 7 other scenes."""
+    key_frame, moved = shifted_pair(seed, H, W, SHIFT)
+    others = [shifted_pair(seed + 100 + i, H, W, 0)[0] for i in range(7)]
+    return key_frame, np.stack([moved] + others)
 
 
 def shifted_pair(seed: int, h: int, w: int, shift: int):
@@ -458,6 +496,29 @@ def nms_inputs(decoded: torch.Tensor, seed: int):
         vals[rng.random(shape, dtype=np.float32) >= 0.05] = 0.0
         out[name] = torch.from_numpy(vals).to(dev)
     return out
+
+
+def kernel_counts() -> dict:
+    """Each kernel wrapper's launch count, by the kernel rows' names."""
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
+    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
+        hinge_descriptor_loss_cuda)
+    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
+
+    return {"decode_threshold": decode_threshold_cuda.launches,
+            "grid_nms": grid_nms_cuda.launches,
+            "descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
+            "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
+
+
+def zero_kernel_counts() -> None:
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
+    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
+        hinge_descriptor_loss_cuda)
+    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
+
+    decode_threshold_cuda.launches = grid_nms_cuda.launches = 0
+    hinge_descriptor_loss_cuda.launches_fwd = hinge_descriptor_loss_cuda.launches_bwd = 0
 
 
 SL_IMAGES = 64        # scenes labelled in phase 9: 4 batches of 16
@@ -684,10 +745,10 @@ def selflabel_phase(seed: int, card: str) -> dict:
         check(r["max_abs_err"] <= (1e-6 if name == "decode_threshold" else 0.0),
               f"{name} at the self-labeling shape against its plain version")
         check(r["ms"] >= r["bound_ms"], f"{name}: not under its bound")
-    shutil.rmtree(work)
     del fe, imgs, logits240, maps, scores
     torch.cuda.empty_cache()
-    return dict(launches=launches, shapes=shapes)
+    # the scenes and the single run's labels stay for phase 13, which removes them
+    return dict(launches=launches, shapes=shapes, work=work)
 
 
 def eval_phase(seed: int, card: str) -> dict:
@@ -979,7 +1040,7 @@ def train_data_phase(seed: int, card: str, survey: dict) -> dict:
     else:
         print("train data generate_dataset: not run (cv2 is not installed here)")
     shutil.rmtree(work / "generated", ignore_errors=True)
-    # the packed split stays for phase 12's command line, which removes it
+    # the packed split stays for phases 12 and 13; phase 13 removes it
     return {"launches": launches, "graph_launches": graph_launches,
             "ms": ms, "busy": busy, "work": work}
 
@@ -1001,25 +1062,10 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
     from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
     from feature_point_cnn_tpu_torch.models.vgg_superpoint import (
         VGG_CONFIG, VGGSuperPoint, init_vgg_superpoint)
-    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
-    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
-        hinge_descriptor_loss_cuda)
-    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
     from feature_point_cnn_tpu_torch.slam.bundle import (
         bundle_adjust, dense_bundle_adjust_reference, synthetic_ba_problem)
     from feature_point_cnn_tpu_torch.slam.tracking import Tracker, frontend_extractor
     from feature_point_cnn_tpu_torch.utils.weights import released_path
-
-    def counts():
-        return {"decode_threshold": decode_threshold_cuda.launches,
-                "grid_nms": grid_nms_cuda.launches,
-                "descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
-                "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
-
-    def zero_counts():
-        decode_threshold_cuda.launches = grid_nms_cuda.launches = 0
-        hinge_descriptor_loss_cuda.launches_fwd = 0
-        hinge_descriptor_loss_cuda.launches_bwd = 0
 
     torch.backends.cudnn.allow_tf32 = True
     weights = released_path()
@@ -1038,7 +1084,7 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
     poly = polygon_scene(np.random.default_rng(seed + 130), th, tw)
     write_bmp(src / "scene.bmp", np.repeat((poly[..., None] * 255).round().astype(np.uint8),
                                            3, -1))
-    zero_counts()
+    zero_kernel_counts()
     track, frames_run = {}, 0
     for source in ("synthetic", str(src)):
         for extra in ([], ["--loops", "2", "--posegraph"] + (
@@ -1063,7 +1109,7 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
     check(loop["num_loop_closures"] > 0
           and loop["posegraph_ate_rmse_px"] < loop["ate_rmse_px"],
           "tracking: the polygon sweep's loop closures lower its ATE")
-    out["launches_tracking"] = counts()
+    out["launches_tracking"] = kernel_counts()
     print(f"tracking main: wrapper launches {out['launches_tracking']} over {frames_run} frames")
     check(out["launches_tracking"]["decode_threshold"] == frames_run
           and out["launches_tracking"]["grid_nms"] == frames_run,
@@ -1235,12 +1281,12 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
 
     # ---- the command line, in-process -------------------------------------
     pack_split(str(work / "npz"), str(packed / "test"))
-    zero_counts()
+    zero_kernel_counts()
     t = time.perf_counter()
     stats = cli.main(["inference", "--weights-path", weights, "--source", "synthetic",
                       "--max-frames", str(CLI_FRAMES), "--no-show"])
     inf_s = time.perf_counter() - t
-    c_inf = counts()
+    c_inf = kernel_counts()
     check(stats["frames"] == CLI_FRAMES and stats["mean_fps"] > 0,
           f"cli inference: {CLI_FRAMES} frames at fps > 0 ({stats})")
     check(c_inf["decode_threshold"] == CLI_FRAMES and c_inf["grid_nms"] == CLI_FRAMES,
@@ -1252,13 +1298,13 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
     cli.main(["train", "--synthetic-path", str(packed), "--epochs", "1",
               "--checkpoint-path", str(mp_dir)])
     mp_s = time.perf_counter() - t
-    c_mp = counts()
+    c_mp = kernel_counts()
     fwd0, bwd0 = c_mp["descriptor_loss_fwd"], c_mp["descriptor_loss_bwd"]
     t = time.perf_counter()
     cli.main(["train", "--coco-path", str(packed), "--magic-point-weights", str(mp_dir),
               "--epochs", "1", "--checkpoint-path", str(joint_dir)])
     joint_s = time.perf_counter() - t
-    c_all = counts()
+    c_all = kernel_counts()
     joint_calls = (c_all["descriptor_loss_fwd"] - fwd0, c_all["descriptor_loss_bwd"] - bwd0)
     print(f"cli train: MagicPoint epoch in {mp_s:.2f} s, joint epoch in {joint_s:.2f} s "
           f"(each builds its trainer and evaluates the test split); descriptor-loss "
@@ -1285,17 +1331,545 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
         exited = str(e)
     print(f"cli export without --raw-weights exits: {exited!r}")
     check("item 7" in exited, "cli export without --raw-weights exits naming item 7")
-    out["launches_cli"] = counts()
+    out["launches_cli"] = kernel_counts()
     out["cli"] = {"inference": stats, "inference_s": inf_s, "magicpoint_epoch_s": mp_s,
                   "joint_epoch_s": joint_s, "joint_descriptor_loss_calls": joint_calls}
-    shutil.rmtree(work)
     return out
+
+
+PAR_RANKS = 2          # phase 13: two ranks on the one card, over gloo
+PAR_BATCH = 32         # its steps' global batch at 240x320, 16 a rank
+PAR_SL_IMAGES = 32     # phase 9's scenes labelled again over the mesh, batch 16
+PAR_TIMED_STEPS = 10
+PAR_TIMEOUT_S = 600
+# the NCCL rank's epochs against one process's: with Adam's epsilon at 1 an
+# update is lr g / (|g| + 1), smooth in g, so float noise in a gradient
+# stays noise; at 1e-8 a near-zero entry moves by +-lr on its sign alone
+PAR_ADAM_EPS = 1.0
+
+
+def _deterministic(on: bool) -> None:
+    """float32 parity runs: TF32 off and cuDNN's deterministic algorithms;
+    off again: the defaults every other phase runs under."""
+    torch.backends.cudnn.allow_tf32 = not on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = on
+
+
+def _par_step(spec: dict, config, batch: dict, rows: slice) -> dict:
+    """One joint step from fresh seeded parameters on ``rows`` of the global
+    ``batch``: metrics, the gradients (all-reduced under a group), the new
+    parameters and statistics, and the wrappers' launches."""
+    from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+    from feature_point_cnn_tpu_torch.train import steps as S
+    from feature_point_cnn_tpu_torch.train.optimizer import make_optimizer
+
+    dev = spec["device"]
+    model = SuperPoint(config, generator=torch.Generator().manual_seed(spec["seed"] + 13),
+                       float32_params=True).to(dev, memory_format=torch.channels_last)
+    state = S.create_train_state(model, make_optimizer(config, model.named_parameters()))
+    local = {k: v[rows].to(dev) for k, v in batch.items()}
+    zero_kernel_counts()
+    _, m = S.superpoint_train_step(
+        state, local, torch.Generator(device=dev).manual_seed(spec["seed"] + 131),
+        config=config)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": {n: p.grad.detach().float().cpu()
+                      for n, p in model.named_parameters() if p.grad is not None},
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "launches": kernel_counts()}
+
+
+def _sharded_order(spec: dict, sorted_idx: np.ndarray, d: int, b: int, epoch: int):
+    """The numpy reference of the item-sharded loader: ``(n_batches, d,
+    b / d)`` dataset rows, rank r's block of each global batch in column r."""
+    n = len(sorted_idx) - len(sorted_idx) % d
+    per, bl = n // d, b // d
+    rng = np.random.default_rng(spec["seed"] + epoch)
+    orders = [rng.permutation(per) for _ in range(d)]
+    return np.stack([np.stack([sorted_idx[r * per + orders[r][i * bl:(i + 1) * bl]]
+                               for r in range(d)]) for i in range(n // b)])
+
+
+def parallel_worker(role: str, rank: int, world: int, port: int, work: Path) -> int:
+    """One rank of phase 13: ``role`` ``gloo`` (the two ranks sharing the
+    card) or ``nccl`` (one rank, the graphed trainer).  Writes
+    ``<work>/<role>_<rank>.pt``."""
+    from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
+    from feature_point_cnn_tpu_torch.data.device_store import DeviceBatchLoader, make_loader
+    from feature_point_cnn_tpu_torch.data.packed import PackedPointDataset
+    from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+    from feature_point_cnn_tpu_torch.parallel import distributed
+    from feature_point_cnn_tpu_torch.parallel.mesh import batch_sharding
+    from feature_point_cnn_tpu_torch.selflabel.coco import preprocess_folder
+    from feature_point_cnn_tpu_torch.slam.bundle import bundle_adjust, synthetic_ba_problem
+    from feature_point_cnn_tpu_torch.train import steps as S
+    from feature_point_cnn_tpu_torch.train.trainer import Trainer
+    from feature_point_cnn_tpu_torch.utils.weights import released_path
+
+    spec = json.loads((work / "spec.json").read_text())
+    dev, seed = spec["device"], spec["seed"]
+    distributed.initialize(f"localhost:{port}", world, rank, device=dev,
+                           backend="gloo" if role == "gloo" else None)
+    mesh = distributed.global_mesh()
+    check((mesh.size, mesh.rank) == (world, rank), f"{role} rank {rank}: mesh {mesh}")
+    cfg32 = SuperPointConfig(lr_schedule="constant", compute_dtype="float32",
+                             train_image_size=tuple(spec["hw"]), batch_size=spec["batch"])
+    packed = spec["packed"]
+    out = {"role": role, "rank": rank, "backend": str(torch.distributed.get_backend())}
+    _deterministic(True)
+
+    if role == "nccl":
+        # one joint step from fresh parameters on the global batch, as the
+        # parent's one-process step; then an epoch of k = 4 graph replays
+        # with the step's collectives captured and the same epoch of eager
+        # steps, as phase 11 runs them but at adam_eps = spec["adam_eps"]
+        out["step"] = _par_step(spec, cfg32, torch.load(work / "batch.pt"), slice(None))
+        ds = PackedPointDataset(packed, "train", seed=seed)
+        loader = make_loader(ds, spec["batch"], cfg32.max_points, seed=seed, device=dev)
+        zero_kernel_counts()
+        for k in (spec["k"], 1):
+            tr = Trainer(cfg32.replace(train_steps_per_call=k, adam_eps=spec["adam_eps"]),
+                         "superpoint", loader, None, str(work / f"ck_nccl_{k}"), seed=seed,
+                         device=dev, log_every=1)
+            m = tr.train_epoch(0)
+            tr.writer.close()
+            out[f"k{k}"] = {
+                "steps": tr.state.step, "graphed": tr._graph is not None,
+                "loss": m.get("loss"),
+                "state": {n: v.detach().cpu() for n, v in tr.state.model.state_dict().items()}}
+            if k > 1:
+                out["launches"] = {n: c + out["step"]["launches"][n]
+                                   for n, c in kernel_counts().items()}
+                if dev == "cuda":
+                    # what the card runs of NCCL in a call of k replays
+                    idxs = list(loader.epoch_index_arrays(1))[:k]
+                    ops = trace_device(lambda: tr.train_steps(idxs, 1, 0), calls=1)
+                    out["nccl_ops"] = {n: c for n, (c, _) in ops.items()
+                                       if "nccl" in n.lower()}
+            del tr
+        torch.save(out, work / f"{role}_{rank}.pt")
+        torch.distributed.destroy_process_group()
+        return 0
+
+    batch = torch.load(work / "batch.pt")
+    rows = batch_sharding(mesh, spec["batch"])
+    launches = {k: 0 for k in kernel_counts()}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # 1-2. the joint step at full width, microbatch_steps 1 and 2
+    for k in (1, 2):
+        r = _par_step(spec, cfg32.replace(microbatch_steps=k), batch, rows)
+        out[f"step_k{k}"] = r
+        add(r["launches"])
+
+    # 3. Trainer on the item-sharded loader over phase 11's packed split
+    ds = PackedPointDataset(packed, "train", seed=seed)
+    loader = DeviceBatchLoader(ds, spec["batch"], cfg32.max_points, device=dev, seed=seed,
+                               items_placement="sharded")
+    seen = []
+    plain_gather = loader.gather_fn()
+
+    def recording_gather(images, points, counts, idx):
+        got = plain_gather(images, points, counts, idx)
+        seen.append((idx.cpu().numpy().copy(),
+                     got["image"].to(torch.int64).sum(dim=(1, 2, 3)).cpu().numpy()))
+        return got
+
+    loader.gather_fn = lambda: recording_gather
+    zero_kernel_counts()
+    tr = Trainer(cfg32, "superpoint", loader, None, str(work / "ck_sharded"), seed=seed,
+                 device=dev, log_every=1)
+    tr.train(epochs=1)
+    add(kernel_counts())
+    out["trainer"] = {"steps": tr.state.step, "seen": seen, "launches": kernel_counts(),
+                      "per_rank_items": loader.images.shape[0],
+                      "state": {k: v.detach().cpu()
+                                for k, v in tr.state.model.state_dict().items()}}
+    del tr, loader
+
+    # 4. extract_sharded with the released weights, float32
+    fe = SuperPointFrontend(SuperPointConfig(compute_dtype="float32"),
+                            weights_path=released_path(), device=dev)
+    frames = torch.from_numpy(serving_frames(seed)[1][:, :spec["extract_hw"][0],
+                                                      :spec["extract_hw"][1]])
+    images = (frames.float() / 255.0).expand(-1, -1, -1, 3).contiguous()
+    erows = batch_sharding(mesh, images.shape[0])
+    zero_kernel_counts()
+    kp, desc = fe.extract_sharded(images, mesh)
+    ext_launches = kernel_counts()
+    add(ext_launches)
+    lkp, ldesc = fe.extract(images[erows])
+    wkp, wdesc = fe.extract(images)
+
+    def cpu(k, d):
+        return {**{f: getattr(k, f).cpu() for f in k._fields}, "desc": d.cpu()}
+
+    out["extract"] = {"sharded": cpu(kp, desc), "local": cpu(lkp, ldesc),
+                      "whole": cpu(wkp, wdesc), "launches": ext_launches,
+                      "rows": [erows.start, erows.stop]}
+    del fe
+
+    # 5. self-labeling over the mesh, under phase 9's settings (bf16)
+    _deterministic(False)
+    fe = SuperPointFrontend(SuperPointConfig(train_image_size=tuple(spec["hw"])),
+                            weights_path=str(Path(released_path()).parent
+                                             / "magicpoint_synth_r3.npz"), device=dev)
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    written = preprocess_folder(fe, spec["bmp_dir"], str(work / "sl_mesh"),
+                                HomographyConfig.for_preprocess().replace(
+                                    num=spec["homo_num"]),
+                                batch_size=spec["sl_batch"], seed=seed)
+    out["selflabel"] = {"written": written, "s": time.perf_counter() - t0,
+                        "launches": kernel_counts()}
+    add(kernel_counts())
+    del fe
+
+    # 6. landmark-sharded bundle adjustment
+    _deterministic(True)
+    problem, _, _ = synthetic_ba_problem(np.random.default_rng(seed + 120), *spec["ba"],
+                                         device=dev)
+    poses, points, costs = bundle_adjust(problem, mesh, iters=10)
+    out["ba"] = {"poses": poses.cpu(), "points": points.cpu(), "costs": costs.cpu()}
+    out["launches"] = launches
+
+    # bf16 ms/step, both ranks at once on the one card
+    _deterministic(False)
+    cfg = cfg32.replace(compute_dtype="bfloat16")
+    from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+    from feature_point_cnn_tpu_torch.train.optimizer import make_optimizer
+
+    model = SuperPoint(cfg, generator=torch.Generator().manual_seed(seed + 13),
+                       float32_params=True).to(dev, memory_format=torch.channels_last)
+    state = S.create_train_state(model, make_optimizer(cfg, model.named_parameters()))
+    local = {k: v[rows].to(dev) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.distributed.barrier()
+    if dev == "cuda":
+        out["step_ms_bf16"] = host_median_ms(
+            lambda: S.superpoint_train_step(state, local, gen, config=cfg),
+            runs=spec["timed_steps"])
+    torch.save(out, work / f"{role}_{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(role: str, world: int, work: Path) -> list:
+    """Start ``world`` ranks of ``role`` as processes of this script, wait for
+    them (``PAR_TIMEOUT_S``), fail the phase if one fails, and return their
+    outputs in rank order."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "LOCAL_RANK": "0"}
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    logs = [work / f"{role}_{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--parallel-worker", role,
+                 "--rank", str(r), "--world", str(world), "--port", str(port),
+                 "--work", str(work)], stdout=f, stderr=subprocess.STDOUT, env=env))
+    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        for r, p in enumerate(procs):
+            tail = "\n".join(logs[r].read_text().splitlines()[-40:])
+            check(p.returncode == 0, f"{role} rank {r} exited {p.returncode}:\n{tail}")
+    except subprocess.TimeoutExpired:
+        check(False, f"{role} ranks did not finish in {PAR_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [torch.load(work / f"{role}_{r}.pt", weights_only=False) for r in range(world)]
+
+
+def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
+                   spec_over: dict = None) -> dict:
+    """Phase 13: the parallel layer.  Two ranks on the one card over gloo
+    (the data-parallel joint step, at microbatch 1 and 2; `Trainer` on the
+    item-sharded loader; `extract_sharded`; self-labeling over the mesh;
+    landmark-sharded BA), then one rank over NCCL (graphed `Trainer`), each
+    held to this process's one-process run."""
+    from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
+    from feature_point_cnn_tpu_torch.data.datasets import BatchLoader
+    from feature_point_cnn_tpu_torch.data.device_store import make_loader
+    from feature_point_cnn_tpu_torch.data.packed import PackedPointDataset
+    from feature_point_cnn_tpu_torch.ops import kernels
+    from feature_point_cnn_tpu_torch.slam.bundle import bundle_adjust, synthetic_ba_problem
+    from feature_point_cnn_tpu_torch.train import steps as S
+    from feature_point_cnn_tpu_torch.train.trainer import Trainer
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=str(kernels.BUILD_DIR)))
+    spec = {"seed": seed, "device": "cuda", "hw": [240, 320], "batch": PAR_BATCH,
+            "packed": str(packed), "bmp_dir": str(work / "bmp"), "sl_batch": SL_BATCH,
+            "ba": list(BA_MAP), "extract_hw": [H, W], "timed_steps": PAR_TIMED_STEPS,
+            "k": TD_K, "homo_num": HomographyConfig.for_preprocess().num,
+            "adam_eps": PAR_ADAM_EPS, **(spec_over or {})}
+    dev, (th, tw), b = spec["device"], spec["hw"], spec["batch"]
+    (work / "spec.json").write_text(json.dumps(spec))
+    (work / "bmp").mkdir()
+    names = sorted(p.name for p in (sl_work / "images").iterdir())[:PAR_SL_IMAGES]
+    for name in names:
+        shutil.copy(sl_work / "images" / name, work / "bmp" / name)
+    cfg32 = SuperPointConfig(lr_schedule="constant", compute_dtype="float32",
+                             train_image_size=(th, tw), batch_size=b)
+    item = next(BatchLoader(SceneDataset(seed + 130, b, th, tw), b, cfg32.max_points,
+                            shuffle=False).epoch(0))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in item.items()}
+    torch.save(batch, work / "batch.pt")
+
+    # the one-process references, the card to itself
+    _deterministic(True)
+    ref = {k: _par_step(spec, cfg32.replace(microbatch_steps=k), batch, slice(None))
+           for k in (1, 2)}
+    problem, _, _ = synthetic_ba_problem(np.random.default_rng(seed + 120), *spec["ba"],
+                                         device=dev)
+    ba_ref = bundle_adjust(problem, iters=10)
+    _deterministic(False)
+    cfg = cfg32.replace(compute_dtype="bfloat16")
+    one_ms = None
+    if dev == "cuda":
+        from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+        from feature_point_cnn_tpu_torch.train.optimizer import make_optimizer
+
+        model = SuperPoint(cfg, generator=torch.Generator().manual_seed(seed + 13),
+                           float32_params=True).to(dev, memory_format=torch.channels_last)
+        state = S.create_train_state(model, make_optimizer(cfg, model.named_parameters()))
+        gbatch = {k: v.to(dev) for k, v in batch.items()}
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        one_ms = host_median_ms(lambda: S.superpoint_train_step(state, gbatch, gen, config=cfg),
+                                runs=spec["timed_steps"])
+        del model, state, gbatch
+        torch.cuda.empty_cache()
+
+    # ---- two ranks over gloo ---------------------------------------------
+    t0 = time.perf_counter()
+    ranks = _launch_ranks("gloo", PAR_RANKS, work)
+    gloo_s = time.perf_counter() - t0
+    print(f"parallel: {PAR_RANKS} ranks over {ranks[0]['backend']} on the one card ran in "
+          f"{gloo_s:.1f} s (processes started, kernels loaded from the build cache)")
+    on_card = dev == "cuda"
+
+    for k in (1, 2):
+        want, got = ref[k], [r[f"step_k{k}"] for r in ranks]
+        loss = [g["metrics"]["loss"] for g in got]
+        worst = max(float(((g - want["grads"][n]).abs()
+                           / (1e-3 + 1e-2 * want["grads"][n].abs())).max())
+                    for n, g in got[0]["grads"].items())
+        bit = all(torch.equal(v, got[1]["state"][n]) for n, v in got[0]["state"].items())
+        print(f"parallel step k = {k}: loss {loss} vs one process {want['metrics']['loss']:.6f}; "
+              f"gradients' worst |diff| / (1e-3 + 1e-2 |g|) {worst:.3f}; "
+              f"parameters and statistics bit-identical across ranks {bit}; "
+              f"descriptor-loss wrappers a rank "
+              f"{[(g['launches']['descriptor_loss_fwd'], g['launches']['descriptor_loss_bwd']) for g in got]}")
+        check(all(abs(l_ - want["metrics"]["loss"]) <= 1e-5 * abs(want["metrics"]["loss"])
+                  for l_ in loss), f"step k = {k}: loss within rtol 1e-5 of one process")
+        check(got[0]["grads"].keys() == want["grads"].keys() and worst <= 1.0,
+              f"step k = {k}: gradients within atol 1e-3 + rtol 1e-2")
+        check(bit, f"step k = {k}: parameters and statistics bit-identical across ranks")
+        if on_card:
+            check(all(g["launches"]["descriptor_loss_fwd"] == k
+                      and g["launches"]["descriptor_loss_bwd"] == k for g in got),
+                  f"step k = {k}: the descriptor-loss kernels launched on each rank")
+
+    ds = PackedPointDataset(str(packed), "train", seed=seed)
+    sorted_idx = np.sort(ds.index)
+    order = _sharded_order(spec, sorted_idx, PAR_RANKS, b, 0)
+    tr = [r["trainer"] for r in ranks]
+    per = tr[0]["per_rank_items"]
+    for r, t in enumerate(tr):
+        check(t["steps"] == len(order), f"trainer rank {r}: {len(order)} steps")
+        for i, (idx, sums) in enumerate(t["seen"]):
+            items = sorted_idx[r * per + idx]
+            check(np.array_equal(items, order[i, r]), f"trainer rank {r} batch {i}: "
+                  f"the numpy reference order")
+            check(np.array_equal(sums, ds.images[items].astype(np.int64).sum(axis=(1, 2, 3))),
+                  f"trainer rank {r} batch {i}: the packed rows")
+    bit = all(torch.equal(v, tr[1]["state"][n]) for n, v in tr[0]["state"].items())
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in tr[0]["state"].values())
+    cks = sorted(p.name for p in (work / "ck_sharded").glob("ckpt_*.pt"))
+    print(f"parallel trainer: {len(order)} steps of {b} on the item-sharded loader "
+          f"({per} items a rank), global batches equal the numpy order; parameters "
+          f"bit-identical across ranks {bit}, finite {finite}; checkpoints {cks}; "
+          f"wrapper launches a rank {[t['launches'] for t in tr]}")
+    check(bit and finite and cks == ["ckpt_0.pt"],
+          "trainer: identical finite parameters, rank 0 wrote the checkpoint")
+
+    ex = [r["extract"] for r in ranks]
+    for r, e in enumerate(ex):
+        lo, hi = e["rows"]
+        same = all(torch.equal(e["sharded"][f][lo:hi], e["local"][f]) for f in e["local"])
+        whole = all(torch.equal(e["sharded"][f], e["whole"][f]) for f in ("y", "x", "valid"))
+        derr = float((e["sharded"]["desc"] - e["whole"]["desc"]).abs().max())
+        print(f"parallel extract_sharded rank {r}: its rows bit-equal to extract of them "
+              f"{same}; keypoints equal to the B = 8 extract {whole}, descriptors "
+              f"max|diff| {derr:.3g}; launches {e['launches']}")
+        check(same, f"extract_sharded rank {r}: its rows bit-equal")
+        check(whole and derr <= 1e-5, f"extract_sharded rank {r}: equals the B = 8 extract")
+        check(all(torch.equal(e["sharded"][f], ex[0]["sharded"][f]) for f in e["sharded"]),
+              "extract_sharded: every rank holds the same batch")
+        if on_card:
+            check(e["launches"]["decode_threshold"] >= 1 and e["launches"]["grid_nms"] >= 1,
+                  f"extract_sharded rank {r}: decode and NMS launched")
+
+    sl = [r["selflabel"] for r in ranks]
+    single, mesh_out = sl_work / "single", work / "sl_mesh"
+    stems = [Path(n).stem + ".npz" for n in names]
+    differ = [n for n in stems
+              if not all(np.array_equal(np.load(single / n)[f], np.load(mesh_out / n)[f])
+                         and np.load(single / n)[f].dtype == np.load(mesh_out / n)[f].dtype
+                         for f in ("image", "points"))]
+    print(f"parallel selflabel: {[s['written'] for s in sl]} items a rank in "
+          f"{[round(s['s'], 2) for s in sl]} s; {len(stems) - len(differ)} of {len(stems)} "
+          f"equal to phase 9's single run bit for bit; launches {[s['launches'] for s in sl]}")
+    check(sum(s["written"] for s in sl) == len(stems) and not differ,
+          f"use_mesh labels equal the single run (differ: {differ[:4]})")
+
+    ba = ranks[0]["ba"]
+    cerr = float(((ba["costs"] - ba_ref[2].cpu()).abs() / ba_ref[2].cpu().abs()).max())
+    perr = float((ba["poses"] - ba_ref[0].cpu()).abs().max())
+    xerr = float((ba["points"] - ba_ref[1].cpu()).abs().max())
+    print(f"parallel BA {tuple(spec['ba'])}: costs rel {cerr:.3g}, poses {perr:.3g}, "
+          f"points {xerr:.3g} against one rank; ranks equal "
+          f"{all(torch.equal(ba[k], ranks[1]['ba'][k]) for k in ba)}")
+    check(cerr <= 1e-5 and perr <= 1e-4 and xerr <= 1e-4,
+          "sharded BA within rtol 1e-5 (costs) and 1e-4 (poses, points) of one rank")
+
+    # ---- one rank over NCCL: the graphed trainer ---------------------------
+    # the reference: this process's k = 4 graphed epoch at the NCCL rank's
+    # adam_eps
+    _deterministic(True)
+    k4 = spec["k"]
+    plain = Trainer(cfg32.replace(train_steps_per_call=k4, adam_eps=spec["adam_eps"]),
+                    "superpoint", make_loader(ds, b, cfg32.max_points, seed=seed, device=dev),
+                    None, str(work / "ck_plain"), seed=seed, device=dev,
+                    write_statistics=False)
+    plain.train_epoch(0)
+    plain_state = {n: v.detach().cpu() for n, v in plain.state.model.state_dict().items()}
+    del plain
+    _deterministic(False)
+    t0 = time.perf_counter()
+    nccl = _launch_ranks("nccl", 1, work)[0]
+    graphed, eager = nccl[f"k{k4}"], nccl["k1"]
+    steps = len(ds.index) // b
+    check(graphed["steps"] == eager["steps"] == steps
+          and (graphed["graphed"] or not on_card) and not eager["graphed"],
+          f"the NCCL trainer took {steps} steps, k = {k4} as graph replays")
+
+    def compare(a, b_):
+        return (max(float((a[n].float() - v.float()).abs().max()) for n, v in b_.items()),
+                all(torch.equal(a[n], v) for n, v in b_.items()),
+                all(torch.allclose(a[n].float(), v.float(), rtol=2e-4, atol=2e-5)
+                    for n, v in b_.items()))
+
+    # one step from the same fresh parameters: the loss and the gradients are
+    # one process's, and the parameters differ by what Adam's first update,
+    # lr s g / (s |g| + eps) with s the clip's scale, makes of the gradients'
+    # difference: up to 2 lr where s |g| is near eps or the sign of a ~0
+    # gradient (a conv bias ahead of a BatchNorm) is rounding noise
+    one, want = nccl["step"], ref[1]
+    lr, eps, clip = cfg32.learning_rate, cfg32.adam_eps, cfg32.grad_clip_norm
+
+    def first_update(grads):
+        norm = float(torch.stack([g.double().norm() for g in grads.values()]).norm())
+        sc = clip / norm if clip > 0 and norm >= clip else 1.0
+        return norm, sc, {n: sc * g.double() / (sc * g.double().abs() + eps)
+                          for n, g in grads.items()}
+
+    norm_one, sc_one, u_one = first_update(one["grads"])
+    norm_want, sc_want, u_want = first_update(want["grads"])
+    worst = max(float(((g - want["grads"][n]).abs()
+                       / (1e-3 + 1e-2 * want["grads"][n].abs())).max())
+                for n, g in one["grads"].items())
+    far = flips = entries = 0
+    moved = near = resid = 0.0
+    for n, g in one["grads"].items():
+        a, w = one["state"][n].double(), want["state"][n].double()
+        tol = 2e-5 + 2e-4 * w.abs()
+        diff = a - w
+        resid = max(resid, float(((diff + lr * (u_one[n] - u_want[n])).abs() / tol).max()))
+        off = diff.abs() > tol
+        entries += g.numel()
+        if bool(off.any()):
+            gw = want["grads"][n].double()
+            far += int(off.sum())
+            flips += int((g.double() * gw <= 0)[off].sum())
+            moved = max(moved, float(diff.abs()[off].max()) / lr)
+            near = max(near, float((sc_want * gw.abs())[off].max()) / eps)
+    print(f"parallel {nccl['backend']} rank, one step from fresh parameters: loss "
+          f"{one['metrics']['loss']:.6f} vs one process {want['metrics']['loss']:.6f}; "
+          f"gradients' worst |diff| / (1e-3 + 1e-2 |g|) {worst:.3g}; gradient norms "
+          f"{norm_one:.6g} / {norm_want:.6g} (clip scales {sc_one:.4g} / {sc_want:.4g}); "
+          f"parameter entries beyond rtol 2e-4 + atol 2e-5: {far} of {entries}, {flips} "
+          f"of them gradient sign flips, the largest s|g| there {near:.3g} eps, moved at "
+          f"most {moved:.4g} lr; |diff - Adam's first update of the gradients' "
+          f"difference| / (2e-5 + 2e-4 |p|) at most {resid:.3g}")
+    check(abs(one["metrics"]["loss"] - want["metrics"]["loss"])
+          <= 1e-5 * abs(want["metrics"]["loss"]),
+          "NCCL one step: loss within rtol 1e-5 of one process")
+    check(one["grads"].keys() == want["grads"].keys() and worst <= 1.0,
+          "NCCL one step: gradients within atol 1e-3 + rtol 1e-2 of one process")
+    check(resid <= 1.0, "NCCL one step: the parameters differ from one process's by "
+                        "Adam's first update of the gradients' difference, within "
+                        "rtol 2e-4 + atol 2e-5")
+
+    ge = compare(graphed["state"], eager["state"])
+    gp = compare(graphed["state"], plain_state)
+    print(f"parallel {nccl['backend']} rank: two Trainer epochs (adam_eps "
+          f"{spec['adam_eps']:g}) in {time.perf_counter() - t0:.1f} s; k = {k4} graphed "
+          f"against k = 1 eager on the same rank: max|diff| {ge[0]:.3g}, bit-equal {ge[1]}; "
+          f"against this process's non-distributed k = {k4} epoch: max|diff| {gp[0]:.3g}, "
+          f"bit-equal {gp[1]}, within rtol 2e-4 + atol 2e-5 {gp[2]}; NCCL operations in "
+          f"a traced call of {k4} replays {nccl.get('nccl_ops')}; wrapper launches "
+          f"{nccl['launches']}")
+    check(ge[2], "NCCL: graphed epoch within rtol 2e-4 + atol 2e-5 of the eager epoch")
+    check(gp[2], f"NCCL: graphed epoch within rtol 2e-4 + atol 2e-5 of the non-distributed "
+                 f"k = {k4} epoch")
+
+    two_ms = [r.get("step_ms_bf16") for r in ranks]
+    if on_card:
+        print(f"parallel timing, TWO PROCESSES SHARING ONE CARD (not scaling): bf16 joint "
+              f"step of {b // PAR_RANKS} a rank {two_ms} ms/step, one process at "
+              f"{b} {one_ms:.3f} ms/step [{card}]")
+    launches = {k: sum(r["launches"][k] for r in ranks) + nccl["launches"][k]
+                for k in ranks[0]["launches"]}
+    by_rank = {k: [r["launches"][k] for r in ranks] + [nccl["launches"][k]]
+               for k in launches}
+    shutil.rmtree(work)
+    shutil.rmtree(sl_work)
+    shutil.rmtree(packed.parent)
+    return {"launches": launches, "by_rank": by_rank, "two_rank_ms": two_ms,
+            "one_process_ms": one_ms, "gloo_s": gloo_s}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 13 starts its ranks as processes of this script
+    ap.add_argument("--parallel-worker", choices=("gloo", "nccl"), help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--work", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.parallel_worker:
+        return parallel_worker(args.parallel_worker, args.rank, args.world, args.port,
+                               args.work)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1358,10 +1932,8 @@ def main(argv=None) -> int:
     print(f"weights: {weights} compute {cfg.compute_dtype}")
     t = cfg.confidence_thresh
 
-    # 8 frames: the keyframe's scene shifted by SHIFT px, then 7 other scenes
-    key_frame, moved = shifted_pair(args.seed, H, W, SHIFT)
-    others = [shifted_pair(args.seed + 100 + i, H, W, 0)[0] for i in range(7)]
-    batch_u8 = torch.from_numpy(np.stack([moved] + others)).cuda()
+    key_frame, frames = serving_frames(args.seed)
+    batch_u8 = torch.from_numpy(frames).cuda()
     batch = (batch_u8.float() / 255.0).expand(-1, -1, -1, 3).contiguous()
 
     # ---- 2. decode ------------------------------------------------------
@@ -1934,6 +2506,14 @@ def main(argv=None) -> int:
                                   if not k.startswith("launches")}}))
     for r in rows[2:]:
         r["graph_replay_kernels_traced"] = td["graph_launches"].get("superpoint")
+
+    # ---- 13. the parallel layer -------------------------------------------
+    pa = parallel_phase(args.seed, card, sl["work"], td["work"] / "packed")
+    for r in rows:
+        # wrapper calls of phase 13, summed over its processes (two gloo
+        # ranks, then the NCCL rank), each counted from 0 before its path
+        r["launches_parallel"] = pa["launches"][r["name"]]
+        r["launches_parallel_by_rank"] = pa["by_rank"][r["name"]]
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

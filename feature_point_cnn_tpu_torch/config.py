@@ -3,10 +3,10 @@
 A copy of the JAX package's ``SuperPointConfig`` and ``HomographyConfig``
 (`feature_point_cnn_tpu/config.py:27-180,202-239`) with the same defaults,
 so one operating point means the same thing on both sides.  Left out on
-purpose: ``stem_s2d`` (a TPU-only reparametrisation of the stem conv),
-``grid_channels`` (always 65: the 64 cell positions and the dustbin) and
-``data_axis`` (the device mesh, which belongs to the parallel slice, not
-ported yet).  ``fold_bn`` folds BatchNorm into the convolutions for serving
+purpose: ``stem_s2d`` (a TPU-only reparametrisation of the stem conv) and
+``grid_channels`` (always 65: the 64 cell positions and the dustbin).
+``data_axis`` names the axis of the data mesh (`parallel/mesh.py`).
+``fold_bn`` folds BatchNorm into the convolutions for serving
 (`models/fold.py`); ``train_steps_per_call`` runs k optimizer steps a host
 call, on the card as k replays of a CUDA graph of the step
 (`train/trainer.py`).
@@ -103,6 +103,9 @@ class SuperPointConfig:
     shuffle_seed: int = 0
     prefetch_batches: int = 2
     photometric_augment: bool = False # on-device photometric augmentation
+
+    # --- parallelism ---
+    data_axis: str = "data"           # the data mesh's axis (parallel/mesh.py)
 
     def __post_init__(self):
         for gate in ("use_cuda_decode", "use_cuda_nms", "use_cuda_desc_loss"):

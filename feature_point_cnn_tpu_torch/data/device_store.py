@@ -9,21 +9,32 @@ augmentation already run inside the step (`train/steps.py`).  `Trainer`
 fuses the gather into its step (`gather_fn`), and its CUDA graph of the
 step reads the index from a fixed buffer.
 
-The epoch order is ``np.random.default_rng(seed + epoch)`` shuffling
-``arange(N)``, as the JAX loader's ``_epoch_order``, so the same seed gives
-the JAX package's batches.  One placement only: the whole split on one
-device (``"replicated"``).  The item-sharded placement belongs to the
-parallel slice (ROADMAP §1 item 5) and raises.
+Two placements over a data mesh (`parallel/mesh.py`) of d ranks, as in
+the JAX loader; each rank's index tensors pick its ``B / d`` rows of the
+global batch of ``batch_size``:
+
+* ``"replicated"``: every rank holds the whole split; the epoch order is
+  ``np.random.default_rng(seed + epoch)`` shuffling ``arange(N)``, and rank
+  r takes rows ``[r B/d, (r+1) B/d)`` of each global batch.
+* ``"sharded"``: the tail is dropped so that d divides the item count, and
+  rank r holds items ``[r N/d, (r+1) N/d)`` of the sorted index; each epoch
+  draws d local permutations in rank order from one ``default_rng(seed +
+  epoch)``, and each batch takes ``B / d`` rows of every rank's permutation.
+  A rank gathers from its own slice, with no collective.
+
+Either way the same seed gives the JAX package's batches
+(``_epoch_order``, `feature_point_cnn_tpu/data/device_store.py:159-179`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from feature_point_cnn_tpu_torch.device import resolve_device
+from feature_point_cnn_tpu_torch.parallel.mesh import DataMesh, make_mesh
 
 Batch = Dict[str, torch.Tensor]
 
@@ -53,7 +64,8 @@ def _gather(images: torch.Tensor, points: torch.Tensor, counts: torch.Tensor,
 class DeviceBatchLoader:
     """Drop-in replacement for ``datasets.BatchLoader`` backed by
     device-resident tensors (``packed.PackedPointDataset`` source only).
-    ``device=None`` means ``cuda``."""
+    ``device=None`` means ``cuda``; ``mesh=None`` is `make_mesh` for the
+    batch size (this process alone without a process group)."""
 
     def __init__(
         self,
@@ -64,23 +76,31 @@ class DeviceBatchLoader:
         seed: int = 0,
         shuffle: bool = True,
         items_placement: str = "replicated",
+        mesh: Optional[DataMesh] = None,
     ):
-        if items_placement == "sharded":
-            raise NotImplementedError(
-                "items_placement='sharded' (the item axis split over a device "
-                "mesh) belongs to the parallel slice, ROADMAP §1 item 5, "
-                "which is not ported yet")
-        if items_placement != "replicated":
+        if items_placement not in ("replicated", "sharded"):
             raise ValueError(f"unknown items_placement {items_placement!r}")
+        self.mesh = mesh if mesh is not None else make_mesh(batch_size=batch_size)
+        d = self.mesh.size
+        if batch_size % d:
+            raise ValueError(f"batch {batch_size} does not split over {d} ranks")
         self.batch_size = batch_size
+        self.local_batch_size = batch_size // d
         self.max_points = max_points
         self.seed = seed
         self.shuffle = shuffle
         self.items_placement = items_placement
         self.device = resolve_device(device)
 
-        # the dataset's (size-capped, seed-permuted) item view, sorted, once
+        # the dataset's (size-capped, seed-permuted) item view, sorted, once;
+        # sharded: the tail dropped to a multiple of d, this rank's slice kept
         idx = np.sort(np.asarray(dataset.index))
+        self.n_items = len(idx)
+        if items_placement == "sharded":
+            self.n_items = len(idx) - len(idx) % d
+            per = self.n_items // d
+            r = self.mesh.rank
+            idx = idx[r * per:(r + 1) * per] if self.mesh.member else idx[:0]
         k = min(dataset.points.shape[1], max_points)
         points = np.zeros((len(idx), max_points, 2), np.float32)
         points[:, :k] = dataset.points[idx, :k]
@@ -91,20 +111,35 @@ class DeviceBatchLoader:
         self.counts = torch.from_numpy(counts.astype(np.int32)).to(self.device)
 
     def __len__(self) -> int:
-        return self.images.shape[0] // self.batch_size
+        return self.n_items // self.batch_size
 
     def _epoch_order(self, epoch_index: int) -> np.ndarray:
-        order = np.arange(self.images.shape[0])
-        if self.shuffle:
-            np.random.default_rng(self.seed + epoch_index).shuffle(order)
-        return order
+        """Replicated: the global permutation ``(N,)``.  Sharded: every
+        rank's local permutation, as ``(n_batches, d, B/d)`` local rows."""
+        rng = np.random.default_rng(self.seed + epoch_index)
+        if self.items_placement == "replicated":
+            order = np.arange(self.n_items)
+            if self.shuffle:
+                rng.shuffle(order)
+            return order
+        d, bl = self.mesh.size, self.local_batch_size
+        n_local = self.n_items // d
+        orders = np.stack([rng.permutation(n_local) if self.shuffle
+                           else np.arange(n_local) for _ in range(d)])
+        return np.stack([orders[:, i * bl:(i + 1) * bl] for i in range(len(self))])
 
     def epoch_index_arrays(self, epoch_index: int = 0) -> Iterator[torch.Tensor]:
-        """The epoch's ``(B,)`` int32 index tensors, uploaded in one copy;
-        for callers that fuse the gather into their own step."""
-        n, b = len(self), self.batch_size
-        order = self._epoch_order(epoch_index)[: n * b].reshape(n, b)
-        order = torch.from_numpy(order.astype(np.int32)).to(self.device)
+        """This rank's ``(B / d,)`` int32 index tensors into its own tensors,
+        one a global batch, uploaded in one copy; for callers that fuse the
+        gather into their own step."""
+        n, b, bl = len(self), self.batch_size, self.local_batch_size
+        order = self._epoch_order(epoch_index)
+        if self.items_placement == "replicated":
+            r = self.mesh.rank
+            order = order[: n * b].reshape(n, b)[:, r * bl:(r + 1) * bl]
+        else:
+            order = order[:, self.mesh.rank]
+        order = torch.from_numpy(np.ascontiguousarray(order, np.int32)).to(self.device)
         yield from order
 
     def epoch(self, epoch_index: int = 0) -> Iterator[Batch]:
@@ -116,7 +151,7 @@ class DeviceBatchLoader:
         return _gather
 
     def materialize(self, batch_idx: torch.Tensor) -> Batch:
-        """One batch as device tensors."""
+        """This rank's rows of one batch, as device tensors."""
         return _gather(self.images, self.points, self.counts, batch_idx)
 
 
@@ -133,8 +168,9 @@ def make_loader(
     device_resident: str = "auto",
     device=None,
 ):
-    """The device-resident loader when the source is packed and fits; the
-    host prefetching loader otherwise (the JAX package's choice)."""
+    """The device-resident loader (the split replicated) when the source is
+    packed and fits; the host prefetching loader otherwise (the JAX
+    package's choice)."""
     from feature_point_cnn_tpu_torch.data.datasets import BatchLoader
     from feature_point_cnn_tpu_torch.data.packed import PackedPointDataset
 

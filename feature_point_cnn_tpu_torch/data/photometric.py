@@ -11,6 +11,8 @@ random values, so the stages can be compared with given values;
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -52,24 +54,32 @@ def noise(
 
 
 def photometric_augment_batch(
-    gen: torch.Generator, images: torch.Tensor, p: float = 1.0 / 3.0
+    gen: torch.Generator, images: torch.Tensor, p: float = 1.0 / 3.0,
+    shard: Tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Augment ``(B, H, W, C)`` images in [0, 1]; each stage fires per item
-    with probability ``p``."""
+    with probability ``p``.  ``shard = (index, count)``: the draws are made
+    for a global batch of ``count * B`` images, of which these are rows
+    ``[index * B, (index + 1) * B)``."""
     b, h, w, c = images.shape
     dev = images.device
+    index, count = shard
+    rows = slice(index * b, (index + 1) * b)
 
     def rand(*shape):
-        return torch.rand(shape, generator=gen, device=gen.device).to(dev)
+        return torch.rand((count * shape[0],) + shape[1:], generator=gen,
+                          device=gen.device)[rows].to(dev)
 
     def fires():
         return (rand(b) < p)[:, None, None, None]
 
     images = torch.where(fires(), brightness_contrast(
         images, rand(b) * 0.4 - 0.2, 1.0 + rand(b) * 0.4 - 0.2), images)
-    choice = torch.randint(0, 3, (b,), generator=gen, device=gen.device).to(dev)
+    choice = torch.randint(0, 3, (count * b,), generator=gen,
+                           device=gen.device)[rows].to(dev)
     images = torch.where(fires(), blur(images, choice), images)
-    gauss = torch.randn((b, h, w, c), generator=gen, device=gen.device).to(dev)
+    gauss = torch.randn((count * b, h, w, c), generator=gen,
+                        device=gen.device)[rows].to(dev)
     images = torch.where(fires(), noise(
         images, 0.9 + 0.2 * rand(b, h, w, 1), gauss, rand(b) < 0.5), images)
     return images.clamp(0.0, 1.0)

@@ -9,8 +9,10 @@ export: the frame program is a method.  `load_state` is `load_variables`
 (`:77-95`): weights come from a ``weights/*.npz`` snapshot or from a
 directory of the port's checkpoints (`utils/checkpoint.py`); the JAX
 package's orbax directories need orbax, and with it JAX, so the port does
-not read them.  StableHLO/PJRT export (ROADMAP §1 item 7) and sharded
-extraction (item 5) are not ported yet.
+not read them.  `SuperPointFrontend.extract_sharded` (`:139-175`) splits a
+batch over the ranks of a data mesh (`parallel/mesh.py`): each rank runs
+`extract_fn` on its rows and every rank gets the whole batch back.
+StableHLO/PJRT export (ROADMAP §1 item 7) is not ported yet.
 """
 
 from __future__ import annotations
@@ -164,6 +166,23 @@ class SuperPointFrontend:
         (B, K, D))`` on the frontend's device."""
         images = self._images(images).to(torch.float32)
         return extract_fn(self.model, images, self.config)
+
+    @torch.inference_mode()
+    def extract_sharded(self, images, mesh) -> Tuple[Keypoints, torch.Tensor]:
+        """`extract` of a ``(B, H, W, 3)`` batch split over ``mesh``: each
+        rank runs the whole extract (the decode and NMS kernels included)
+        on its ``B / d`` rows, and every rank gets the whole batch's
+        keypoints and descriptors back through one exact sum of zero-filled
+        buffers a field (`parallel/collectives.py::gather_rows`).  Every
+        rank passes the same global batch, as in JAX."""
+        from feature_point_cnn_tpu_torch.parallel.collectives import gather_rows
+        from feature_point_cnn_tpu_torch.parallel.mesh import batch_sharding
+
+        images = self._images(images).to(torch.float32)
+        kp, desc = extract_fn(self.model, images[batch_sharding(mesh, images.shape[0])],
+                              self.config)
+        return (Keypoints(*(gather_rows(f, mesh.group) for f in kp)),
+                gather_rows(desc, mesh.group))
 
     def run(self, img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """One ``(H, W, 3)`` image -> ``(points (3, N) [x, y, conf], desc

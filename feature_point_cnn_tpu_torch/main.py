@@ -10,6 +10,11 @@ same subcommands, flags and defaults.
   python -m feature_point_cnn_tpu_torch.main inference --weights-path W [--source 0]
   python -m feature_point_cnn_tpu_torch.main export --weights-path W --raw-weights w.npz
 
+Under ``torchrun --nproc-per-node=N -m feature_point_cnn_tpu_torch.main
+train ...`` each rank joins the job (`parallel/distributed.py::initialize`,
+NCCL with a card a rank) and trains data-parallel; outside torchrun
+``initialize`` does nothing.
+
 Weights paths are ``weights/*.npz`` snapshots or directories of the port's
 checkpoints (`utils/checkpoint.py`).  Everything runs on the card; each
 subcommand's body is a function of ``(opt, config, device)`` that tests
@@ -158,6 +163,9 @@ def _loaders(cfg, path, test_size: int = 0, device_resident: str = "auto",
 
 def run_inference(opt, cfg: SuperPointConfig, device=None) -> dict:
     from feature_point_cnn_tpu_torch.inference.demo import run_demo
+    from feature_point_cnn_tpu_torch.parallel import distributed
+
+    distributed.initialize(device=device)
 
     stats = run_demo(opt.weights_path, cfg, source=opt.source, width=opt.W,
                      height=opt.H, max_frames=opt.max_frames,
@@ -185,7 +193,10 @@ def run_export(opt, cfg: SuperPointConfig, device=None) -> None:
 
 
 def run_train(opt, cfg: SuperPointConfig, device=None) -> None:
+    from feature_point_cnn_tpu_torch.parallel import distributed
     from feature_point_cnn_tpu_torch.train.trainer import Trainer
+
+    distributed.initialize(device=device)
 
     write_stats = not opt.no_write_statistics
     placement = {"auto": "auto", "device": "on", "host": "off"}[opt.data_placement]

@@ -13,7 +13,13 @@ train mode `BatchNorm2d` keeps Flax's running statistics, not PyTorch's: the
 **biased** batch variance with momentum 0.1 (`nn.BatchNorm2d` would store
 the unbiased one, n/(n-1) larger).  The batch statistics are computed once,
 by `F.batch_norm` itself, and the variance is rescaled on its way into
-`running_var`.
+`running_var`.  Under a data group (`parallel/collectives.py`) the train-mode
+statistics are the global batch's, as Flax's mean over a sharded batch
+axis is (`_GroupBatchNorm`): one all-reduce of the per-channel count, sum
+and sum of squares, then the global mean and the biased global variance,
+which is also what `running_var` takes (the unbiased variance rescaled by
+``(n - 1) / n`` over the global ``n``).  `nn.SyncBatchNorm` would store the
+unbiased variance.
 
 ``fold_bn=True`` is the serving topology (`blocks.py:163-228` of the JAX
 package): every convolution carries a bias and every BatchNorm is an
@@ -26,6 +32,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from feature_point_cnn_tpu_torch.device import constant
+from feature_point_cnn_tpu_torch.parallel import collectives
 
 
 class Conv2d(nn.Conv2d):
@@ -52,6 +61,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if collectives.group() is not None:
+            return self._group_forward(x)
         # one statistics pass: with momentum 1 `F.batch_norm` leaves the batch
         # mean and the unbiased batch variance in the two scratch buffers
         n = x.numel() // x.shape[1]
@@ -64,6 +75,68 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
             self.num_batches_tracked += 1
         return y
+
+    def _group_forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = _GroupBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                             collectives.group())
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
+class _GroupBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the group's global batch, ``(N, C, H, W)``.
+
+    Forward: ONE all-reduce of the per-channel count, sum and sum of
+    squares (accumulated in float64, so ``E[x^2] - E[x]^2`` does not lose
+    the variance of a channel whose mean is large); the global mean and
+    biased variance then normalise in float32 (float64 for float64
+    input).  Backward: the gradient through that all-reduce, written in
+    the form that does not cancel (``dx = w / sigma (dy - mean(dy) - xhat
+    mean(dy xhat))``, as in every BatchNorm backward): one all-reduce of
+    the per-channel sums of ``dy`` and ``dy xhat``.  The weight's and
+    bias's gradients stay this rank's sums, which the step's gradient
+    all-reduce adds up.  Returns ``(y, mean, var)``; the statistics carry
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, g):
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        xf = x if x.dtype == torch.float64 else x.to(torch.float32)
+        stats = torch.cat([
+            xf.sum(dim=dims, dtype=torch.float64),
+            (xf * xf).sum(dim=dims, dtype=torch.float64),
+            constant((float(x.numel() // c),), x.device, torch.float64)])
+        stats = collectives.all_sum_(stats, g)
+        n = stats[2 * c]
+        mean64 = stats[:c] / n
+        mean = mean64.to(xf.dtype)
+        var = (stats[c:2 * c] / n - mean64 * mean64).clamp_min(0.0).to(xf.dtype)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean[None, :, None, None]) * (invstd * weight)[None, :, None, None] \
+            + bias[None, :, None, None]
+        # n stays on the device: a step captured in a CUDA graph reads nothing back
+        ctx.save_for_backward(x, weight, mean, invstd, n.to(xf.dtype))
+        ctx.group = g
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        dyf = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean[None, :, None, None]) * invstd[None, :, None, None]
+        local = torch.cat([dyf.sum(dim=dims), (dyf * xhat).sum(dim=dims)])
+        total = collectives.all_sum_(local, ctx.group)
+        mean_dy = (total[:c] / n)[None, :, None, None]
+        mean_dy_xhat = (total[c:] / n)[None, :, None, None]
+        dx = (dyf - mean_dy - xhat * mean_dy_xhat) * (weight * invstd)[None, :, None, None]
+        return dx.to(x.dtype), local[c:], local[:c], None, None
 
 
 def batch_norm(channels: int, fold_bn: bool) -> nn.Module:

@@ -7,7 +7,7 @@ class 64 is the dustbin."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,6 +42,7 @@ def make_points_labels_batch(
     img_w: int,
     cell: int,
     noise: Optional[torch.Tensor] = None,
+    shard: Tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Encode padded point sets into per-cell 65-class labels
     (`labels.py:46-91`): paint score 2 at point pixels, space-to-depth, add
@@ -51,7 +52,10 @@ def make_points_labels_batch(
     ``points (B, P, 2)`` float ``(y, x)``; ``valid (B, P)`` bool: padded and
     out-of-image entries are dropped.  The tie-break noise in [0, 0.1),
     ``(B, Hc, Wc, 65)``, is drawn from ``gen`` (on its device) unless
-    ``noise`` is given.  Returns ``(B, Hc, Wc)`` int64 labels in [0, 64].
+    ``noise`` is given; ``shard = (index, count)`` draws it for a global
+    batch of ``count * B`` rows and keeps rows ``[index * B, (index + 1) *
+    B)``, this rank's (`parallel/collectives.py::shard`).  Returns ``(B, Hc,
+    Wc)`` int64 labels in [0, 64].
     """
     b = points.shape[0]
     dev = points.device
@@ -65,8 +69,10 @@ def make_points_labels_batch(
     cells = space_to_depth(point_map[:, :-1].reshape(b, img_h, img_w), cell)
     cells = torch.cat([cells, torch.ones_like(cells[..., :1])], dim=-1)
     if noise is None:
-        noise = 0.1 * torch.rand(cells.shape, generator=gen, device=gen.device,
-                                 dtype=torch.float32).to(dev)
+        index, count = shard
+        noise = 0.1 * torch.rand((count * b,) + cells.shape[1:], generator=gen,
+                                 device=gen.device, dtype=torch.float32
+                                 )[index * b:(index + 1) * b].to(dev)
     return (cells + noise).argmax(dim=-1)
 
 

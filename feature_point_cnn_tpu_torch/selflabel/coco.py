@@ -8,10 +8,14 @@ points}`` npz items (``image`` CHW float32 in [0, 1], ``points`` ``(3, N)``
 
 Each item's warps are drawn from a generator seeded by ``(seed, the item's
 index in the full sorted file list)`` alone, so a sharded or resumed run
-labels every item as a single run does.  Files are split across processes
-by ``shard_index / num_shards``.  Left out: ``use_mesh`` (the batch split
-over the devices of one process) and the multi-card placement, which
-belong to the parallel slice.
+labels every item as a single run does.  Two levels of parallelism, as in
+JAX: the file list splits across jobs by ``shard_index / num_shards``, and
+with ``use_mesh`` each global batch of ``d * batch_size`` items splits over
+the d ranks of a job's data mesh (`parallel/mesh.py`), ``batch_size`` a
+rank; each rank labels and writes its own items.  Unlike JAX, whose
+devices take ``batch_size / d`` items each, a rank runs the program shape
+a single run runs: the card's convolutions may round differently at
+another batch size, and the labels would then depend on the rank count.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
 from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+from feature_point_cnn_tpu_torch.parallel.mesh import make_mesh
 from feature_point_cnn_tpu_torch.utils.image import ratio_preserving_crop, read_rgb
 
 _IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp"}
@@ -95,10 +100,18 @@ def preprocess_folder(
     shard_index: int = 0,
     num_shards: int = 1,
     limit: int = 0,
+    use_mesh: bool = True,
     skip_existing: bool = True,
 ) -> int:
     """Label every image under ``image_dir`` into ``output_dir`` npz items
-    and return the count written.
+    and return the count this process wrote.
+
+    With ``use_mesh`` under a process group, the items go to the d ranks
+    of the data mesh in blocks of ``batch_size``, rank r taking blocks r,
+    r + d, ... of this shard's list; written items are dropped from a
+    rank's own blocks after that, so the split does not depend on when
+    each rank lists the folder.  Without a group the mesh is this process
+    alone.
 
     Each item's warps come from `item_generator` ``(seed, index in the full
     sorted list)``, so the labels do not depend on the shard or on the
@@ -106,6 +119,7 @@ def preprocess_folder(
     of the device program), and an interrupted run resumes by skipping
     written items (``skip_existing``) without changing the rest.  The tail
     batch is padded to ``batch_size``."""
+    mesh = make_mesh() if use_mesh else None
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     all_paths = sorted(
@@ -116,6 +130,12 @@ def preprocess_folder(
     paths = list(enumerate(all_paths))[shard_index::num_shards]
     if limit:
         paths = paths[:limit]
+    if mesh is not None:
+        # blocks of the list as it stands before written items are dropped:
+        # a rank that lists the folder after another rank wrote to it takes
+        # the same blocks
+        paths = [p for i, p in enumerate(paths)
+                 if (i // batch_size) % mesh.size == mesh.rank]
     n_assigned = len(paths)
     if skip_existing:
         paths = [

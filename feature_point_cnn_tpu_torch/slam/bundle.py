@@ -20,8 +20,15 @@ Jacobian with `torch.func.jacfwd`, so the two routes share no derivative
 code.  Solves read no status back (``solve_ex``), so an iteration makes no
 host round trip.
 
-The landmark-sharded route (JAX's ``mesh``) belongs to the parallel slice
-(ROADMAP §1 item 5) and raises.
+Over a data mesh (`parallel/mesh.py`, JAX's ``mesh``) the landmarks are
+padded to a multiple of the mesh with zero-observation entries (their
+``Hll`` is the damping, their update is dropped) and each rank owns a
+contiguous block of them with their observations.  Every landmark adds an
+independent term to ``(S, bs, cost)``, so an iteration is the rank's part
+of the system (`_shard_system`), ONE all-reduce of ``(S, bs, cost)``, the
+pose solve on every rank (`_solve_poses`) and the rank's own
+back-substitution (`_back_substitute`).  The points come back to every
+rank in one exact sum at the end.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from feature_point_cnn_tpu_torch.device import resolve_device
+from feature_point_cnn_tpu_torch.parallel.collectives import all_sum_, gather_rows
 from feature_point_cnn_tpu_torch.slam.posegraph import sim2_inverse
 
 
@@ -97,11 +105,11 @@ def _inverse_2x2(m: torch.Tensor) -> torch.Tensor:
                        -2) * inv_det[..., None, None]
 
 
-def _gn_iteration(poses, points, obs_pose, obs_xy, obs_valid, damping: float,
-                  anchor_weight: float):
-    """One Schur-complement Gauss-Newton iteration -> ``(poses, points,
-    cost)``."""
-    n_poses, (n_points, m) = poses.shape[0], obs_pose.shape
+def _shard_system(poses, points, obs_pose, obs_xy, obs_valid, damping: float):
+    """The landmarks' additive part of the reduced camera system: ``(S (4P,
+    4P), bs (4P,), cost ())``, undamped, and ``(hll_inv, bl, hpl, idx)`` for
+    their back-substitution."""
+    n_poses = poses.shape[0]
     r, jp, jl = _observation_terms(poses, points, obs_pose, obs_xy, obs_valid)
     hpp = torch.einsum("lmki,lmkj->lmij", jp, jp)             # (L, M, 4, 4)
     hpl = torch.einsum("lmki,lmkj->lmij", jp, jl)             # (L, M, 4, 2)
@@ -127,19 +135,51 @@ def _gn_iteration(poses, points, obs_pose, obs_xy, obs_valid, damping: float,
     bs = torch.zeros((n_poses, 4), dtype=poses.dtype, device=poses.device)
     bs.index_add_(0, idx.reshape(-1),
                   (bp - torch.einsum("lmik,lk->lmi", whi, bl)).reshape(-1, 4))
+    return s, bs.reshape(-1), (r * r).sum(), (hll_inv, bl, hpl, idx)
 
-    # gauge fix: a quadratic prior pinning pose 0 at its current value
-    # (H += w·I on its block, b += 0), and Levenberg damping
-    diag_add = torch.full((4 * n_poses,), damping, dtype=poses.dtype,
-                          device=poses.device)
+
+def _solve_poses(s, bs, damping: float, anchor_weight: float) -> torch.Tensor:
+    """The damped, gauge-fixed pose step ``(P, 4)`` from the whole reduced
+    system: a quadratic prior pins pose 0 at its current value (H += w·I on
+    its block, b += 0), Levenberg damping on the diagonal."""
+    diag_add = torch.full((s.shape[0],), damping, dtype=s.dtype, device=s.device)
     diag_add[:4] += anchor_weight
     s = s + torch.diag(diag_add)
+    return torch.linalg.solve_ex(s, bs)[0].reshape(-1, 4)
+
+
+def _back_substitute(hll_inv, bl, hpl, idx, dp) -> torch.Tensor:
+    """The landmarks' step ``dl = Hll^-1 (bl - W' dp)``, ``(L, 2)``."""
+    wtdp = torch.einsum("lmik,lmi->lk", hpl, dp[idx])         # (L, 2)
+    return torch.einsum("lij,lj->li", hll_inv, bl - wtdp)
+
+
+def _gn_iteration(poses, points, obs_pose, obs_xy, obs_valid, damping: float,
+                  anchor_weight: float, group=None):
+    """One Schur-complement Gauss-Newton iteration -> ``(poses, points,
+    cost)``; with a process ``group``, over its ranks' landmark blocks."""
+    s, bs, cost, local = _shard_system(poses, points, obs_pose, obs_xy,
+                                       obs_valid, damping)
+    if group is not None:
+        n = s.numel()
+        total = all_sum_(torch.cat([s.reshape(-1), bs, cost[None]]), group)
+        s, bs, cost = total[:n].view(s.shape), total[n:-1], total[-1]
     # b was accumulated as +J'r; GN solves H δ = -J'r, so (dp, dl) are the
     # negated update
-    dp = torch.linalg.solve_ex(s, bs.reshape(-1))[0].reshape(n_poses, 4)
-    wtdp = torch.einsum("lmik,lmi->lk", hpl, dp[idx])         # (L, 2)
-    dl = torch.einsum("lij,lj->li", hll_inv, bl - wtdp)
-    return poses - dp, points - dl, (r * r).sum()
+    dp = _solve_poses(s, bs, damping, anchor_weight)
+    return poses - dp, points - _back_substitute(*local, dp), cost
+
+
+def _pad_landmarks(problem: BAProblem, n_shards: int) -> BAProblem:
+    """Zero-observation landmarks appended up to a multiple of
+    ``n_shards``."""
+    pad = (-problem.points.shape[0]) % n_shards
+    if pad == 0:
+        return problem
+    return BAProblem(problem.poses, *(
+        torch.cat([t, torch.zeros((pad,) + t.shape[1:], dtype=t.dtype,
+                                  device=t.device)])
+        for t in problem[1:]))
 
 
 def bundle_adjust(
@@ -151,20 +191,29 @@ def bundle_adjust(
     anchor_weight: float = 1e4,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Schur-complement Gauss-Newton bundle adjustment on the problem's
-    device.  Returns ``(poses (P, 4), points (L, 2), costs (iters,))``, the
-    cost of each iteration before its update."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "bundle_adjust over a device mesh (landmarks sharded, one reduction "
-            "of the camera system an iteration) belongs to the parallel slice, "
-            f"ROADMAP §1 item 5; pass mesh=None (axis {axis!r} unused)")
-    poses, points = problem.poses, problem.points
+    device; with ``mesh``, a `parallel.mesh.DataMesh` on ``axis``, over its
+    ranks, every rank passing the whole problem.  Returns ``(poses (P, 4),
+    points (L, 2), costs (iters,))``, the cost of each iteration before its
+    update, on every rank."""
+    group, rows = None, slice(None)
+    n_points = problem.points.shape[0]
+    if mesh is not None and mesh.axis != axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    if mesh is not None and mesh.group is not None:
+        if not mesh.member:
+            raise ValueError("this rank is outside the data mesh")
+        problem = _pad_landmarks(problem, mesh.size)
+        per = problem.points.shape[0] // mesh.size
+        group, rows = mesh.group, slice(mesh.rank * per, (mesh.rank + 1) * per)
+    poses, points = problem.poses, problem.points[rows]
+    obs = (problem.obs_pose[rows], problem.obs_xy[rows], problem.obs_valid[rows])
     costs = []
     for _ in range(iters):
-        poses, points, cost = _gn_iteration(
-            poses, points, problem.obs_pose, problem.obs_xy, problem.obs_valid,
-            damping, anchor_weight)
+        poses, points, cost = _gn_iteration(poses, points, *obs, damping,
+                                            anchor_weight, group)
         costs.append(cost)
+    if group is not None:
+        points = gather_rows(points, group)[:n_points]
     return poses, points, torch.stack(costs)
 
 

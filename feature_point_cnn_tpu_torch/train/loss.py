@@ -7,6 +7,13 @@ warped cell.  On CUDA tensors it goes through the hand-written kernels of
 every ``(B, N, N)`` tensor out of device memory in both directions; their
 plain version, the materialised computation, serves CPU tensors and the
 gate ``"off"``.
+
+Under a data group (`parallel/collectives.py`) each rank holds its rows of
+the global batch, and every loss returns its rank's SHARE of the global
+mean: the numerator over the local rows, the divisor counted over the whole
+global batch (one all-reduce of the count where it depends on the data).
+The shares of all ranks sum to the one-process loss on the global batch,
+and so do their gradients.
 """
 
 from __future__ import annotations
@@ -25,13 +32,17 @@ from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
     hinge_descriptor_loss_cuda,
     hinge_descriptor_loss_plain,
 )
+from feature_point_cnn_tpu_torch.parallel.collectives import all_sum_, group, shard
 
 
 def _masked_mean(losses: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is None:
-        return losses.mean()
+        if group() is None:
+            return losses.mean()
+        # the ranks' shards are equal, so the global count is a product
+        return losses.sum() / float(losses.numel() * shard()[1])
     mask = mask.to(losses.dtype)
-    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+    return (losses * mask).sum() / all_sum_(mask.sum()).clamp_min(1.0)
 
 
 def detector_loss(
@@ -123,7 +134,7 @@ def descriptor_loss(
     centers = _cell_centers(hc, wc, config.cell, desc.device)
     warped_centers = warp_points(centers, homographies)        # (B, N, 2)
     mask = _cell_mask(valid_mask, b, n, desc.device)
-    normalization = (mask.sum() * float(n)).clamp_min(1.0)
+    normalization = (all_sum_(mask.sum()) * float(n)).clamp_min(1.0)
 
     fn = (hinge_descriptor_loss_cuda
           if use_kernel(config.use_cuda_desc_loss, d)
@@ -165,7 +176,7 @@ def descriptor_hinge_hn_loss(
     mask = _cell_mask(valid_mask, b, n, desc.device)
     pair_ok = s * mask[:, None, :]
     pos = torch.relu(config.positive_margin - dot)
-    pos_term = (pos * pair_ok).sum() / pair_ok.sum().clamp_min(1.0)
+    pos_term = (pos * pair_ok).sum() / all_sum_(pair_ok.sum()).clamp_min(1.0)
 
     neg = torch.relu(dot - config.negative_margin)
     # correspondences and masked warped cells leave the mining pool
@@ -173,7 +184,8 @@ def descriptor_hinge_hn_loss(
     hard = torch.cat([neg.topk(k, dim=2).values,
                       neg.transpose(1, 2).topk(k, dim=2).values], dim=-1)
     finite = torch.isfinite(hard)
-    neg_term = torch.where(finite, hard, 0.0).sum() / finite.sum().clamp_min(1.0)
+    neg_term = (torch.where(finite, hard, 0.0).sum()
+                / all_sum_(finite.sum().to(torch.float32)).clamp_min(1.0))
     return config.lambda_hn * (pos_term + neg_term)
 
 
@@ -202,7 +214,7 @@ def descriptor_mse_loss(
     wd = warped_desc.reshape(b, -1, dd).to(torch.float32)
     wd_at = wd.gather(1, flat_idx[..., None].expand(-1, -1, dd))
     sq = ((d - wd_at) ** 2).sum(dim=-1) * inlier
-    return sq.sum() / (inlier.sum() * dd).clamp_min(1.0)
+    return sq.sum() / (all_sum_(inlier.sum().to(torch.float32)) * dd).clamp_min(1.0)
 
 
 def global_loss(

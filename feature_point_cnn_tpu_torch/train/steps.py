@@ -15,6 +15,18 @@ come from the one `torch.Generator` a step is given, in a fixed order.
 `superpoint_train_step` is `_augment_and_encode` followed by
 `superpoint_train_step_encoded`, which can be called on given ``(images,
 warped, labels, wlabels, cell_mask, homog)``.
+
+Data parallelism (`parallel/`): under a data group each rank passes its
+rows of the global batch, and the d ranks compute what one process computes
+on the global batch, as the JAX step does over a sharded batch.  Every
+random draw is made for the GLOBAL batch from the step's generator, and the
+rank keeps its rows; train-mode BatchNorm and every loss divisor count the
+global batch (`models/blocks.py`, `train/loss.py`); ONE all-reduce sums the
+gradient after the backward and before the clip and the update, so every
+rank applies the same update and the parameters stay bit-identical; the
+metrics are group-wide.  Microbatch ``i`` of the global batch (items ``i,
+i + k, ...``) is the union of the ranks' local microbatches ``i`` only when
+each rank's row count divides by k, so the step raises otherwise.
 """
 
 from __future__ import annotations
@@ -28,12 +40,14 @@ from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfi
 from feature_point_cnn_tpu_torch.data.photometric import photometric_augment_batch
 from feature_point_cnn_tpu_torch.geometry.homography import (
     homographic_augmentation_batch,
+    sample_homography_batch,
 )
 from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
 from feature_point_cnn_tpu_torch.ops.labels import (
     make_points_labels_batch,
     scale_valid_map,
 )
+from feature_point_cnn_tpu_torch.parallel.collectives import all_sum_, group, shard
 from feature_point_cnn_tpu_torch.train.loss import detector_loss, global_loss
 from feature_point_cnn_tpu_torch.train.optimizer import Optimizer
 from feature_point_cnn_tpu_torch.utils.metrics import samplewise_f1
@@ -94,8 +108,10 @@ def _microbatched_backward(
     """
     b = next(iter(data.values())).shape[0]
     if b % k != 0:
+        n_ranks = shard()[1]
+        where = f" on each of {n_ranks} ranks" if n_ranks > 1 else ""
         raise ValueError(
-            f"batch size {b} is not divisible by microbatch_steps={k}"
+            f"batch size {b}{where} is not divisible by microbatch_steps={k}"
         )
     model.zero_grad(set_to_none=True)
     total, auxes = None, []
@@ -104,7 +120,35 @@ def _microbatched_backward(
         (loss / k).backward()
         total = loss.detach() if total is None else total + loss.detach()
         auxes.append(aux)
+    _all_sum_grads(model)
     return total / k, auxes
+
+
+def _all_sum_grads(model: SuperPoint) -> None:
+    """Sum the gradients in ``.grad`` over the data group, in ONE all-reduce
+    of a flat buffer (each rank's are its share of the global gradient)."""
+    if group() is None:
+        return
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = all_sum_(torch.cat([g.reshape(-1) for g in grads]))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+
+
+def _global_metrics(shares: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Group-wide metrics from each rank's share of them (the shares sum to
+    the global value), in one all-reduce; the identity with no group."""
+    if group() is None:
+        return shares
+    total = all_sum_(torch.stack([v.to(torch.float32) for v in shares.values()]))
+    return {k: total[i] for i, k in enumerate(shares)}
+
+
+def _f1_share(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the global batch's mean per-sample F1."""
+    return samplewise_f1(logits, labels) / shard()[1]
 
 
 def _interleave(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -130,13 +174,7 @@ def magicpoint_train_step(
     descriptor head is neither run nor updated (build the optimizer with
     ``frozen_subtree="descriptor"``)."""
     model = state.model.train()
-    images = _prep_images(batch["image"], config)
-    h, w = images.shape[1:3]
-    if config.photometric_augment:
-        images = photometric_augment_batch(gen, images)
-    labels = make_points_labels_batch(
-        batch["points"], batch["points_valid"], gen, h, w, config.cell
-    )
+    images, labels = _prep_and_label(batch, gen, config, augment=True)
 
     def micro_loss(m):
         logits, _ = model.features(m["images"], enable_descriptor=False)
@@ -148,12 +186,12 @@ def magicpoint_train_step(
         micro_loss, model, {"images": images, "labels": labels},
         config.microbatch_steps,
     )
-    metrics = {
+    metrics = _global_metrics({
         "loss": loss,
         "detector_loss": loss,
-        "f1": samplewise_f1(_interleave(logits_k), labels),
-        **_grad_norms(model),
-    }
+        "f1": _f1_share(_interleave(logits_k), labels),
+    })
+    metrics.update(_grad_norms(model))
     state.optimizer.step()
     state.step += 1
     return state, metrics
@@ -165,14 +203,26 @@ def magicpoint_eval_step(
     config: SuperPointConfig,
 ) -> Dict[str, torch.Tensor]:
     model = state.model.eval()
-    images = _prep_images(batch["image"], config)
-    h, w = images.shape[1:3]
-    labels = make_points_labels_batch(
-        batch["points"], batch["points_valid"], gen, h, w, config.cell
-    )
+    images, labels = _prep_and_label(batch, gen, config, augment=False)
     logits, _ = model.features(images, enable_descriptor=False)
     loss = detector_loss(logits, labels, None, config.cell, config.detector_loss)
-    return {"loss": loss, "f1": samplewise_f1(logits, labels)}
+    return _global_metrics({"loss": loss, "f1": _f1_share(logits, labels)})
+
+
+def _prep_and_label(batch: Batch, gen: torch.Generator, config: SuperPointConfig,
+                    augment: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MagicPoint phase's images (photometric augmentation when
+    ``augment`` and the config say so) and labels, each draw made for the
+    global batch."""
+    images = _prep_images(batch["image"], config)
+    h, w = images.shape[1:3]
+    if augment and config.photometric_augment:
+        images = photometric_augment_batch(gen, images, shard=shard())
+    labels = make_points_labels_batch(
+        batch["points"], batch["points_valid"], gen, h, w, config.cell,
+        shard=shard(),
+    )
+    return images, labels
 
 
 # ---------------------------------------------------------------------------
@@ -188,18 +238,23 @@ def _augment_and_encode(
     images)``.  Draw order: photometric (when on), homographies, label
     noise, warped-label noise."""
     images = _prep_images(batch["image"], config)
-    h, w = images.shape[1:3]
+    b, h, w = images.shape[:3]
+    index, count = part = shard()
     if config.photometric_augment:
         # before the geometric warp, as the reference applies its transforms
         # at dataset-read time
-        images = photometric_augment_batch(gen, images)
+        images = photometric_augment_batch(gen, images, shard=part)
+    h_flat = sample_homography_batch(gen, count * b, (h, w), homo_config,
+                                     images.device)[index * b:(index + 1) * b]
     warped, wpoints, wvalid, valid_mask, homog = homographic_augmentation_batch(
-        gen, images, batch["points"], batch["points_valid"], homo_config
+        None, images, batch["points"], batch["points_valid"], homo_config,
+        h_flat=h_flat,
     )
     labels = make_points_labels_batch(
-        batch["points"], batch["points_valid"], gen, h, w, config.cell
+        batch["points"], batch["points_valid"], gen, h, w, config.cell, shard=part
     )
-    wlabels = make_points_labels_batch(wpoints, wvalid, gen, h, w, config.cell)
+    wlabels = make_points_labels_batch(wpoints, wvalid, gen, h, w, config.cell,
+                                       shard=part)
     cell_mask = scale_valid_map(valid_mask, config.cell)
     return warped, labels, wlabels, cell_mask, homog, images
 
@@ -230,13 +285,13 @@ def superpoint_train_step_encoded(
     losses = {k: torch.stack([a[0][k] for a in auxes]).mean()
               for k in auxes[0][0]}
     logits = _interleave([a[1] for a in auxes])
-    metrics = {
+    metrics = _global_metrics({
         "loss": loss,
         "detector_loss": losses["detector"] + losses["warped_detector"],
         "descriptor_loss": losses["descriptor"],
-        "f1": samplewise_f1(logits, data["labels"]),
-        **_grad_norms(model),
-    }
+        "f1": _f1_share(logits, data["labels"]),
+    })
+    metrics.update(_grad_norms(model))
     state.optimizer.step()
     state.step += 1
     return state, metrics
@@ -274,8 +329,8 @@ def superpoint_eval_step(
         logits2[:b], labels, logits2[b:], wlabels, desc2[:b], desc2[b:],
         homog, cell_mask, config,
     )
-    return {
+    return _global_metrics({
         "loss": losses["total"],
         "descriptor_loss": losses["descriptor"],
-        "f1": samplewise_f1(logits2[:b], labels),
-    }
+        "f1": _f1_share(logits2[:b], labels),
+    })

@@ -1,7 +1,15 @@
 """Training loop: epochs, checkpoint/resume, metrics and summaries
 (`feature_point_cnn_tpu/train/trainer.py`).
 
-One process, one device; the device mesh belongs to the parallel slice.
+One device a rank.  Without a process group that is one process; under
+one (``torchrun``, `parallel/distributed.py`) the trainer runs on a data
+mesh of the ranks (`parallel/mesh.py::make_mesh` for the loader's batch
+size, at most ``n_devices`` ranks): each rank takes its rows of every
+global batch, the steps reduce over the mesh (`train/steps.py`), the state
+is broadcast from rank 0 at start and after a resume, and rank 0 alone
+writes checkpoints, ``metrics.jsonl``, summaries and the snapshot while
+the others wait at a barrier.  A rank outside the mesh says so and trains
+nothing.
 
 With a `DeviceBatchLoader` the batch gather runs inside the step, from a
 ``(B,)`` index on the device, as the JAX package's fused step does, and
@@ -15,7 +23,9 @@ steps would replay one seed with running Philox offsets, while one graph a
 step draws exactly what an eager step of the same index draws.  On the CPU
 the same call runs the k steps eagerly.  A failed capture raises; nothing
 falls back to eager steps.  A tail of fewer than k steps runs single eager
-steps, as in JAX.
+steps, as in JAX.  On a mesh the graph holds the step's collectives, which
+NCCL can be captured with and gloo cannot: k > 1 under gloo with more than
+one rank raises.
 
 Summaries (`utils/summary.py`): train and test scalars, a model table, BN-
 free parameter histograms and a keypoint-overlay image through the serving
@@ -25,18 +35,26 @@ never stops training.  ``FPC_PROFILE_DIR`` traces steps 5-15 of epoch 0.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
 from feature_point_cnn_tpu_torch.data.device_store import DeviceBatchLoader
 from feature_point_cnn_tpu_torch.device import resolve_device
 from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+from feature_point_cnn_tpu_torch.parallel import collectives
+from feature_point_cnn_tpu_torch.parallel.mesh import (
+    make_mesh,
+    replicate_state,
+    shard_batch,
+)
 from feature_point_cnn_tpu_torch.train import steps as S
 from feature_point_cnn_tpu_torch.train.optimizer import make_optimizer
 from feature_point_cnn_tpu_torch.utils import checkpoint as ckpt
@@ -47,11 +65,22 @@ from feature_point_cnn_tpu_torch.utils.weights import load_variables, save_weigh
 Metrics = Dict[str, torch.Tensor]
 
 
+def _on_mesh(method):
+    """Run a `Trainer` method with the trainer's mesh as the data group
+    (`parallel/collectives.py::data_group`), so its steps reduce over that
+    mesh whatever other meshes exist."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with collectives.data_group(self.mesh.group):
+            return method(self, *args, **kwargs)
+    return run
+
+
 class Trainer:
     """Phase-agnostic trainer; ``phase`` is ``"magicpoint"`` or
     ``"superpoint"``.  ``train_loader``: a `BatchLoader` (host batches) or
     a `DeviceBatchLoader` (the gather fused into the step).  ``device=None``
-    means ``cuda``."""
+    means ``cuda``; ``n_devices`` caps the ranks of the data mesh."""
 
     def __init__(
         self,
@@ -67,9 +96,20 @@ class Trainer:
         write_statistics: bool = True,
         log_every: int = 50,
         snapshot_path: Optional[str] = None,
+        n_devices: Optional[int] = None,
     ):
         if phase not in ("magicpoint", "superpoint"):
             raise ValueError(f"unknown phase {phase!r}")
+        self.mesh = make_mesh(n_devices, axis=config.data_axis,
+                              batch_size=train_loader.batch_size)
+        self.chief = self.mesh.rank == 0
+        backend = (str(dist.get_backend(self.mesh.group))
+                   if self.mesh.group is not None else None)
+        if config.train_steps_per_call > 1 and self.mesh.size > 1 and backend != "nccl":
+            raise ValueError(
+                f"train_steps_per_call={config.train_steps_per_call} captures "
+                f"the step's collectives in a CUDA graph, which needs NCCL; "
+                f"this job's backend is {backend}")
         self.config = config
         self.phase = phase
         self.train_loader = train_loader
@@ -84,6 +124,10 @@ class Trainer:
         if self._fused_loader and train_loader.device != self.device:
             raise ValueError(f"the loader's split is on {train_loader.device}, "
                              f"the trainer runs on {self.device}")
+        if self._fused_loader and (train_loader.mesh.size, train_loader.mesh.rank) != (
+                self.mesh.size, self.mesh.rank):
+            raise ValueError(f"the loader's mesh {train_loader.mesh} is not the "
+                             f"trainer's {self.mesh}")
 
         model = SuperPoint(
             config, generator=torch.Generator().manual_seed(seed * 1_000_003 + 17),
@@ -127,9 +171,15 @@ class Trainer:
                       f"from {magicpoint_checkpoint_dir}; descriptor head fresh")
             else:
                 print("[trainer] WARNING: no MagicPoint checkpoint found")
+        if self.mesh.member:
+            # every rank starts from rank 0's state and counters
+            counters = torch.tensor([self.start_epoch, self.state.step],
+                                    dtype=torch.int64, device=self.device)
+            replicate_state([self._state_tensors(), counters], self.mesh)
+            self.start_epoch, self.state.step = (int(v) for v in counters.tolist())
 
         self.writer = MetricWriter(
-            f"{checkpoint_dir}/runs" if write_statistics else None)
+            f"{checkpoint_dir}/runs" if write_statistics and self.chief else None)
         self._graph_written = False
         self._graph: Optional[torch.cuda.CUDAGraph] = None
 
@@ -209,6 +259,7 @@ class Trainer:
         self.state.step = step0
         self._graph = graph
 
+    @_on_mesh
     def train_steps(self, idxs: List[torch.Tensor], epoch: int,
                     first: int) -> Metrics:
         """``len(idxs)`` optimizer steps in one host call (the fused loader
@@ -300,9 +351,11 @@ class Trainer:
     def _log(self, metrics: Metrics, epoch: int, steps_done: int, t0: float,
              logged: list, summary_batch) -> None:
         """Read the metrics (a device sync) at a logging point: scalars and
-        the printed line.  ``summary_batch() -> batch or None``: a batch
-        asks for the image summary and the histograms too (every ``4 *
-        log_every`` steps)."""
+        the printed line, on rank 0 alone.  ``summary_batch() -> batch or
+        None``: a batch asks for the image summary and the histograms too
+        (every ``4 * log_every`` steps)."""
+        if not self.chief:
+            return
         m = {k: float(v) for k, v in metrics.items()}
         m["lr"] = float(self.state.optimizer.learning_rate())
         logged.append(m)
@@ -323,6 +376,7 @@ class Trainer:
     # ------------------------------------------------------------------
     # loops
 
+    @_on_mesh
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         logged: list = []
         t0 = time.time()
@@ -340,7 +394,7 @@ class Trainer:
             else:
                 for i, item in enumerate(self.train_loader.epoch(epoch)):
                     window.tick(i)
-                    batch = self._to_device(item)
+                    batch = self._to_device(shard_batch(item, self.mesh))
                     with profiling.annotate(f"{self.phase}_train_step"):
                         _, metrics = self._train_step(batch, self._seed(epoch, i))
                     if (i + 1) % self.log_every == 0 or i == 0:
@@ -378,6 +432,7 @@ class Trainer:
                           lambda: self.train_loader.materialize(last)
                           if done % (4 * self.log_every) < n else None)
 
+    @_on_mesh
     def evaluate(self, epoch: int) -> Dict[str, float]:
         if self.test_loader is None:
             return {}
@@ -391,7 +446,7 @@ class Trainer:
             if max_batches and i >= max_batches:
                 break
             if not isinstance(self.test_loader, DeviceBatchLoader):
-                batch = self._to_device(batch)
+                batch = self._to_device(shard_batch(batch, self.mesh))
             metrics = self._eval_step(batch, self._seed(10_000 + epoch, i))
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
@@ -402,19 +457,25 @@ class Trainer:
         return out
 
     def save(self, epoch: int) -> None:
-        ckpt.save_state(self.manager, epoch, {
-            "model": self.state.model.state_dict(),
-            "optimizer": self.state.optimizer.state_dict(),
-            "step": self.state.step,
-        })
-        if self.snapshot_path:
-            # a portable single-file snapshot refreshed every epoch
-            save_weights(self.snapshot_path, self.state.model.state_dict())
+        """Rank 0 writes; every other rank of the mesh waits for it."""
+        if self.chief:
+            ckpt.save_state(self.manager, epoch, {
+                "model": self.state.model.state_dict(),
+                "optimizer": self.state.optimizer.state_dict(),
+                "step": self.state.step,
+            })
+            if self.snapshot_path:
+                # a portable single-file snapshot refreshed every epoch
+                save_weights(self.snapshot_path, self.state.model.state_dict())
+        if self.mesh.group is not None:
+            dist.barrier(group=self.mesh.group)
 
     def train(self, epochs: Optional[int] = None) -> None:
         """Train up to ``epochs`` TOTAL epochs (counting restored ones):
         re-running the same command after an interruption converges on the
         same total."""
+        if not self.mesh.member:
+            return
         epochs = epochs or self.config.epochs
         end = max(self.start_epoch, epochs)
         if end == self.start_epoch:
@@ -424,7 +485,7 @@ class Trainer:
             print(f"=== {self.phase} epoch {epoch} ===")
             self.train_epoch(epoch)
             test = self.evaluate(epoch)
-            if test:
+            if test and self.chief:
                 print(f"[{self.phase}] epoch {epoch} test "
                       + " ".join(f"{k}={v:.4f}" for k, v in test.items()))
             self.save(epoch)

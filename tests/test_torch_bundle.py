@@ -115,6 +115,16 @@ def test_invalid_observations_ignored():
 
 
 def test_a_mesh_raises_naming_the_parallel_slice():
+    """Named for the raise this test held while the landmark-sharded route
+    was missing.  It now checks the ported route: a mesh on another axis
+    than ``axis`` raises naming both, and the mesh of this process alone
+    (no process group) runs the one-device iteration bit for bit.  Two
+    ranks are held in `tests/test_torch_distributed.py`."""
+    from feature_point_cnn_tpu_torch.parallel.mesh import DataMesh, make_mesh
+
     problem, _, _ = bundle.synthetic_ba_problem(np.random.default_rng(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        bundle.bundle_adjust(problem, mesh=object())
+    with pytest.raises(ValueError, match="'width'.*'data'"):
+        bundle.bundle_adjust(problem, mesh=DataMesh(1, 0, "width"))
+    got = bundle.bundle_adjust(problem, mesh=make_mesh(), iters=3)
+    want = bundle.bundle_adjust(problem, iters=3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -191,9 +191,20 @@ def test_make_loader_chooses_as_jax(npz_tree, packed_pair):
 
 
 def test_item_sharded_placement_names_the_parallel_slice(packed_pair):
+    """Named for the raise this test held while the item-sharded placement
+    was missing.  It now checks the ported placement: over the mesh of this
+    process alone its one permutation of the whole split gives the
+    replicated placement's batches; an unknown placement raises.  Its order
+    over two ranks is held to JAX's in `tests/test_torch_parallel.py`."""
     ds = packed.PackedPointDataset(str(packed_pair[1]), "train")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        device_store.DeviceBatchLoader(ds, 2, 16, device="cpu", items_placement="sharded")
+    sharded = device_store.DeviceBatchLoader(ds, 2, 16, device="cpu",
+                                             items_placement="sharded")
+    replicated = device_store.DeviceBatchLoader(ds, 2, 16, device="cpu")
+    assert len(sharded) == len(replicated) > 0
+    for a, b in zip(sharded.epoch(1), replicated.epoch(1)):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    with pytest.raises(ValueError, match="items_placement"):
+        device_store.DeviceBatchLoader(ds, 2, 16, device="cpu", items_placement="ring")
 
 
 def test_real_corpus_equals_jax_on_the_installed_photos(tmp_path):

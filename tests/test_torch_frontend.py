@@ -164,8 +164,9 @@ def test_decode_gate_on_cpu_matches_prob_path():
 
 def test_port_imports_no_jax():
     """Importing every port module, chip_smoke and bench_torch_nms pulls in
-    neither JAX nor the JAX package, nor cv2 or PIL (the H100 machine has
-    neither)."""
+    neither JAX nor the JAX package, nor cv2 or PIL: the port imports those
+    two inside the functions that need them (the H100 machine has both,
+    ROADMAP §3)."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "feature_point_cnn_tpu_torch").rglob("*.py")

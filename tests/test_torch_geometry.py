@@ -62,8 +62,8 @@ def test_config_matches_jax_defaults():
                                  "use_cuda_desc_loss"}
     assert set(jc) - set(tc) == {
         "use_pallas_decode", "use_pallas_nms", "use_pallas_desc_loss",
-        "stem_s2d", "grid_channels", "data_axis"}
-    assert {"fold_bn", "train_steps_per_call"} <= shared
+        "stem_s2d", "grid_channels"}
+    assert {"fold_bn", "train_steps_per_call", "data_axis"} <= shared
 
 
 def test_flat_algebra_matches_jax():
