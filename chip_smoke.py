@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, self-labeling, evaluation,
-tracking, command-line and parallel paths on one CUDA card and check them.
+tracking, command-line, parallel and native serving paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -96,9 +97,10 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    memory); the VGG forward at 480x640 gray, B = 1 and 8, float32 against
    the CPU (prob 1e-4) and ms/frame; `main.main` ``inference`` (60 frames),
    ``train`` as MagicPoint on phase 11's packed split and then joint (the
-   descriptor-loss wrappers called), ``export --raw-weights`` (the ``.npz``
-   and the checkpoint directory give the same keypoints) and ``export``
-   without it (exits naming ROADMAP §1 item 7);
+   descriptor-loss wrappers called), ``export --raw-weights --out`` (the
+   ``.npz`` and the checkpoint directory give the same keypoints; the
+   `torch.export` program loaded back gives the frontend's keypoints at
+   480x640, >= 99% shared);
 13. the parallel layer, its ranks processes of this script (``--parallel-
    worker``; the kernels phase 1 built are loaded, not rebuilt), at float32,
    TF32 off, cuDNN deterministic unless said.  Two ranks sharing the one
@@ -126,7 +128,28 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    rtol 2e-4 + atol 2e-5 of the other and the graphed one of this
    process's non-distributed graphed epoch.  bf16 ms/step of the two-rank
    step and of this process's step, printed as two processes sharing one
-   card, not scaling.
+   card, not scaling;
+14. export and native serving: the frame program of the released weights
+   at 480x640 exported by `SuperPointFrontend.export_native` and compiled
+   by AOTInductor on the card (its graph holds both ``fpc`` ops): packed
+   B = 1 f32 RGB with live BatchNorm (export's default, bf16), compiled
+   in a process of this script beside phase 1's build
+   (``--native-compile``), then in turn the full ABI of the same model
+   and u8 gray B = 8 and B = 32 from the folded model (bf16).  The packed package on phase 4's keyframe and frames launches
+   decode and NMS once a call (counted and traced) and equals the eager
+   `frame` at `tests/test_torch_frontend.py`'s tolerances (counts equal,
+   >= 99% of rows at the same pixel, coordinates and scores 1e-5,
+   descriptors 1e-3, >= 99% of matches), with >= 30 matches on the
+   shifted frame; so do the full ABI against its program run eagerly and
+   u8 gray B = 8 against the folded eager frame on f32 RGB.  The eager
+   bf16 frame's and the package's distances from the float32 frame (TF32
+   off) are printed.  The package's ms/frame beside the live and the folded
+   eager frame at B = 1 and 32, in turns.  The native host (`csrc/serve/`)
+   built by `inference/native.py` with g++ beside the compiles, its camera
+   self-test, then 200 frames of ``--source synthetic`` (pipeline depths
+   1, 2, 4) and of a replay of a panned scene for the B = 1 and B = 8
+   packages: the replay's ``exec`` lines equal Python's run of the package
+   (`replay_exec_lines`).
 
 The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
 and under ``b32`` at B = 32, the kernel's device time from a trace
@@ -146,6 +169,10 @@ entry-point runs and ``launches_cli`` each wrapper's calls in phase 12's
 command line; ``launches_parallel`` each wrapper's calls in phase 13,
 summed over its processes (``launches_parallel_by_rank``: gloo rank 0,
 gloo rank 1, the NCCL rank), each counted from 0 before its path.
+
+``launches_native`` counts each wrapper's launches in phase 14's main path
+(the package's calls in this process; the host launches through its own
+op library and is not counted).
 
 It prints a ``{"kernels": [...]}`` line, the card's line again, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 1 and
@@ -305,6 +332,60 @@ def shifted_pair(seed: int, h: int, w: int, shift: int):
     return u8[:, :w], u8[:, shift:shift + w]
 
 
+def replay_exec_lines(model, meta: dict, frames: np.ndarray, device) -> list:
+    """Python's run of a native package ``model`` (``aoti_load_package`` or
+    an exported module) over raw float32 ``(F, H, W, C)`` frames, as the
+    host runs it (`feature_point_cnn_tpu_torch/csrc/serve/
+    superpoint_serve.cc`): batches of ``meta["batch"]`` frames, u8 staged as
+    the host quantizes, the first execute's outputs fed back as the keyframe.
+    Returns the host's ``exec`` lines without the latency, ``(exec,
+    keypoints, matches)`` for the first three executes and the last."""
+    from feature_point_cnn_tpu_torch.inference.wrapper import DTYPES
+
+    b, packed = meta["batch"], meta["abi"] == "packed"
+    key_desc, key = (torch.zeros(s["shape"], dtype=DTYPES[s["dtype"]], device=device)
+                     for s in meta["inputs"][1:])
+    execs = len(frames) // b
+    lines = []
+    for f in range(execs):
+        x = frames[f * b:(f + 1) * b]
+        if meta["input_dtype"] == "u8":
+            x = np.clip(x * np.float32(255.0) + np.float32(0.5), 0, 255).astype(np.uint8)
+        outs = model(torch.from_numpy(x).to(device), key_desc, key)
+        if packed:
+            counts = (int(outs[0].sum()), int((outs[2] >= 0).sum()))
+            feedback = (outs[4], outs[5]) if b > 1 else (outs[3], outs[0])
+        else:
+            counts = (int(outs[3].sum()), int(outs[5].sum()))
+            feedback = (outs[6], outs[3])
+        if f == 0:
+            key_desc, key = feedback
+        if f < 3 or f + 1 == execs:
+            lines.append((f, *counts))
+    return lines
+
+
+def keypoint_overlap(a, b) -> float:
+    """The share of keypoint set ``b``'s ``(y, x)`` that ``a`` holds too;
+    each a ``(y, x, valid)`` of ``(B, K)`` tensors or arrays."""
+    def points(y, x, valid):
+        y, x, valid = (np.asarray(torch.as_tensor(t).cpu()) for t in (y, x, valid))
+        return {(i, yy, xx) for i in range(y.shape[0])
+                for yy, xx, v in zip(y[i].tolist(), x[i].tolist(), valid[i].tolist()) if v}
+
+    pa, pb = points(*a), points(*b)
+    return len(pa & pb) / max(len(pb), 1)
+
+
+def host_exec_lines(stdout: str) -> list:
+    """The ``[serve] exec`` lines of a host run, as `replay_exec_lines`
+    returns them."""
+    import re
+
+    return [tuple(int(g) for g in m.groups()) for m in re.finditer(
+        r"\[serve\] exec +(\d+): keypoints= *(\d+) matches= *(\d+)", stdout)]
+
+
 def import_survey() -> dict:
     """Whether cv2, PIL, sklearn and tensorboard can be found here, with
     their distributions' versions, without importing any of them."""
@@ -414,8 +495,9 @@ def trace_device(fn, calls: int = 3) -> dict:
     """Each CUDA operation (kernel, copy, fill) of one run of ``fn()``, from
     a traced window of ``calls`` runs after one untraced run: ``{name:
     (launches a run, device ms a launch)}``.  A window that comes back with
-    no device record (the tracer now and then delivers none) is traced
-    again, three times at most."""
+    no device record, or with records lost (an operation's count not a
+    whole number a run: the tracer now and then delivers none or part), is
+    traced again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     ops = {}
@@ -429,7 +511,7 @@ def trace_device(fn, calls: int = 3) -> dict:
         ops = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
-        if ops:
+        if ops and all(n == int(n) for n, _ in ops.values()):
             break
     return ops
 
@@ -1311,8 +1393,9 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
           f"wrapper calls in the joint run (fwd, bwd) {joint_calls} [{card}]")
     check(joint_calls[0] > 0 and joint_calls[1] > 0,
           "cli train: the joint branch called the descriptor-loss wrappers")
-    raw = work / "cli_export.npz"
-    cli.main(["export", "--weights-path", str(joint_dir), "--raw-weights", str(raw)])
+    raw, prog = work / "cli_export.npz", work / "cli_export_program.pt2"
+    cli.main(["export", "--weights-path", str(joint_dir), "--raw-weights", str(raw),
+              "--out", str(prog)])
     torch.backends.cudnn.allow_tf32 = False
     img = torch.from_numpy(np.repeat(polygon_scene(rng, th, tw)[None, ..., None], 3, -1))
     kps = [SuperPointFrontend(cfg32, weights_path=str(w), device="cuda").extract(img)[0]
@@ -1324,13 +1407,19 @@ def tracking_ba_vgg_cli_phase(seed: int, card: str, packed: Path) -> dict:
           f".npz and from the checkpoint directory equal: {same} "
           f"({int(kps[0].valid.sum())} valid)")
     check(same, "cli export: the .npz and the directory give the same keypoints")
-    try:
-        cli.main(["export", "--weights-path", str(joint_dir)])
-        exited = ""
-    except SystemExit as e:
-        exited = str(e)
-    print(f"cli export without --raw-weights exits: {exited!r}")
-    check("item 7" in exited, "cli export without --raw-weights exits naming item 7")
+    # --out: the torch.export extract program at the parser's 480x640, run
+    # against the frontend's extract on the same weights (bf16)
+    scene = np.repeat(polygon_scene(rng, H, W)[None, ..., None], 3, -1)
+    with torch.inference_mode():
+        got = torch.export.load(str(prog)).module()(torch.from_numpy(scene).cuda())
+    want, _ = SuperPointFrontend(SuperPointConfig(), weights_path=str(joint_dir),
+                                 device="cuda").extract(scene)
+    n_got, n_want = int(got[3].sum()), int(want.valid.sum())
+    shared = keypoint_overlap((got[0], got[1], got[3]), (want.y, want.x, want.valid))
+    print(f"cli export --out: {prog.name} {prog.stat().st_size} bytes; the loaded "
+          f"program's keypoints {n_got}, extract's {n_want}, shared {shared:.4f}")
+    check(n_got == n_want and shared >= 0.99,
+          "cli export --out: the loaded program gives extract's keypoints")
     out["launches_cli"] = kernel_counts()
     out["cli"] = {"inference": stats, "inference_s": inf_s, "magicpoint_epoch_s": mp_s,
                   "joint_epoch_s": joint_s, "joint_descriptor_loss_calls": joint_calls}
@@ -1857,6 +1946,311 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
             "one_process_ms": one_ms, "gloo_s": gloo_s}
 
 
+NATIVE_FRAMES = 200      # frames of each host run in phase 14
+NATIVE_BATCH = 8         # the u8 gray bundle's batch
+NATIVE_TIMEOUT_S = 600   # the compile beside phase 1
+# phase 14's bundles: (frontend, export_native's arguments).  "live": the
+# released model with live BatchNorm, bf16 (export's default); "fold":
+# BatchNorm folded (export --fold-bn), bf16.  The full ABI reuses the
+# packed program's compiled kernels
+NATIVE_BUNDLES = {
+    "packed": ("live", dict()),
+    "full": ("live", dict(abi="full")),
+    f"u8gray_b{NATIVE_BATCH}": ("fold", dict(batch=NATIVE_BATCH, input_dtype="u8",
+                                             input_channels=1)),
+    "u8gray_b32": ("fold", dict(batch=32, input_dtype="u8", input_channels=1)),
+}
+
+
+def frame_agreement(got, want, what: str, hold: bool = True) -> dict:
+    """Packed frame outputs ``got`` against ``want`` (each ``(num_valid,
+    kp_packed, match_index, desc16)`` with a batch axis); with ``hold``,
+    held to the frontend tests' tolerances: counts equal, >= 99% of keypoint
+    rows at the same pixel, coordinates and scores there within 1e-5, f16
+    descriptors within 1e-3, >= 99% of match slots equal."""
+    got = [np.asarray(t.cpu()) for t in got]
+    want = [np.asarray(t.cpu()) for t in want]
+    same = (got[1][..., :2] == want[1][..., :2]).all(-1)
+    stats = dict(
+        num_valid_equal=bool((got[0] == want[0]).all()),
+        rows_same=float(same.mean()),
+        coord_err=float(np.abs(got[1][same] - want[1][same]).max(initial=0.0)),
+        desc_err=float(np.abs(got[3][same].astype(np.float32)
+                              - want[3][same].astype(np.float32)).max(initial=0.0)),
+        match_same=float((got[2] == want[2]).mean()))
+    print(f"native {what}: {stats}")
+    if not hold:
+        return stats
+    check(stats["num_valid_equal"], f"{what}: keypoint counts equal")
+    check(stats["rows_same"] >= 0.99, f"{what}: >= 99% of keypoints the same")
+    check(stats["coord_err"] <= 1e-5, f"{what}: coordinates and scores within 1e-5")
+    check(stats["desc_err"] <= 1e-3, f"{what}: descriptors within 1e-3")
+    check(stats["match_same"] >= 0.99, f"{what}: >= 99% of matches the same")
+    return stats
+
+
+def _packed_view(outs, batch: int):
+    """A bundle's outputs as ``(num_valid, kp_packed, match_index, desc)``
+    with a batch axis: the full ABI's arrays packed as the packed ABI packs
+    them, the unbatched packed ABI's given its axis."""
+    if len(outs) == 7:
+        y, x, score, valid, mi, mv, desc = (t[None] for t in outs)
+        return (valid.sum(-1, dtype=torch.int32), torch.stack([y, x, score], -1),
+                torch.where(mv, mi, -1), desc)
+    return tuple(t[None] for t in outs[:4]) if batch == 1 else tuple(outs[:4])
+
+
+def run_host(binary: Path, args: list, what: str, card: str) -> str:
+    out = subprocess.run([str(binary), *map(str, args)], capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"host {what}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    for line in out.stdout.splitlines():
+        if "steady-state" in line or "loaded" in line:
+            print(f"host {what}: {line} [{card}]")
+    return out.stdout
+
+
+def native_frontend(which: str):
+    """Phase 14's frontends of the released weights (`NATIVE_BUNDLES`)."""
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+    from feature_point_cnn_tpu_torch.utils.weights import released_path
+
+    cfg = {"live": SuperPointConfig(), "fold": SuperPointConfig(fold_bn=True),
+           "f32": SuperPointConfig(compute_dtype="float32")}[which]
+    return SuperPointFrontend(cfg, weights_path=released_path(), device="cuda")
+
+
+def export_bundle(fe, name: str, work: Path) -> float:
+    """`export_native` of phase 14's bundle ``name`` from the frontend
+    ``fe`` into ``work / name``; returns its seconds."""
+    import torch._inductor.config as inductor_config
+
+    # AOTInductor links its C++ wrapper with -fopenmp: take the g++ on PATH
+    # (nvcc's host compiler), which links OpenMP, over a CXX that may not
+    inductor_config.cpp.cxx = (None, shutil.which("g++") or os.environ.get("CXX", "g++"))
+    t = time.perf_counter()
+    fe.export_native(str(work / name), (H, W), **NATIVE_BUNDLES[name][1])
+    return time.perf_counter() - t
+
+
+def native_compile_worker(name: str, work: Path) -> int:
+    """``--native-compile NAME``: `export_bundle` in a process of its own,
+    so that the first (cold) compile runs beside phase 1's build; its last
+    line is its seconds."""
+    secs = export_bundle(native_frontend(NATIVE_BUNDLES[name][0]), name, work)
+    print(json.dumps({"export_compile_s": secs}))
+    return 0
+
+
+def start_native_compile(name: str, work: Path) -> subprocess.Popen:
+    """`native_compile_worker` for the bundle ``name``, killed at exit if it
+    still runs."""
+    import atexit
+
+    with open(work / f"compile_{name}.log", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--native-compile", name,
+             "--work", str(work)], stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc
+
+
+def finish_native_compile(proc: subprocess.Popen, name: str, work: Path) -> float:
+    """Wait for a compile worker (``NATIVE_TIMEOUT_S``), fail if it failed,
+    and return the bundle's export and compile seconds."""
+    try:
+        proc.wait(timeout=NATIVE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        check(False, f"the compile of {name} did not finish in {NATIVE_TIMEOUT_S} s")
+    log = (work / f"compile_{name}.log").read_text()
+    check(proc.returncode == 0, f"compile of {name} exited {proc.returncode}:\n{log[-3000:]}")
+    return json.loads(next(line for line in reversed(log.splitlines())
+                           if line.startswith('{"export_compile_s"')))["export_compile_s"]
+
+
+def native_phase(seed: int, card: str, fe, work: Path, packed_s: float) -> dict:
+    """Phase 14: the frame program exported as AOTInductor packages on the
+    card and held to the eager `frame`, and the native host built and run.
+    ``fe``: the released weights' frontend (live BatchNorm, bf16); ``work``
+    holds the "packed" bundle, compiled in ``packed_s`` seconds beside
+    phase 1; the other bundles compile here in turn, beside the host's
+    build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch._inductor import aoti_load_package
+
+    from feature_point_cnn_tpu_torch.inference import native
+    from feature_point_cnn_tpu_torch.inference.wrapper import (
+        KERNEL_OPS,
+        FrameProgram,
+        graph_ops,
+    )
+
+    t_phase = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+
+    def timed_build():
+        t = time.perf_counter()
+        return native.build("cuda"), time.perf_counter() - t
+
+    host_build = pool.submit(timed_build)
+    cfg = fe.config
+    frontends = {"live": fe, "fold": native_frontend("fold")}
+    secs = {"export_compile_packed": packed_s}
+    t = time.perf_counter()
+    ep, _ = fe.native_program((H, W))
+    secs["export_packed"] = time.perf_counter() - t
+    ops = graph_ops(ep)
+    print(f"native: the packed program's graph calls {sorted(o for o in ops if 'fpc' in o)} "
+          f"among {len(ops)} operators; exported in {secs['export_packed']:.2f} s")
+    check(KERNEL_OPS <= ops, "the exported frame program calls both fpc ops")
+    sizes, packages, metas = {}, {}, {}
+
+    def load(name):
+        t = time.perf_counter()
+        packages[name] = aoti_load_package(str(work / name / "model.pt2"))
+        secs[f"load_{name}"] = time.perf_counter() - t
+        sizes[name] = (work / name / "model.pt2").stat().st_size
+        metas[name] = json.loads((work / name / "meta.json").read_text())
+        print(f"native: {name} ({NATIVE_BUNDLES[name][0]}) exported and compiled in "
+              f"{secs[f'export_compile_{name}']:.2f} s, loaded in {secs[f'load_{name}']:.2f} s, "
+              f"model.pt2 {sizes[name]} bytes [{card}]")
+
+    load("packed")
+    # the main path: the packed package on phase 4's keyframe and frames,
+    # f32 RGB a frame a call, against the eager frame on the same inputs
+    # (the package's keyframe outputs fed to both)
+    key_frame, frames = serving_frames(seed)
+    rgb = lambda u8: torch.from_numpy(u8).cuda().float().div(255.0).expand(
+        *u8.shape[:-1], 3).contiguous()
+    pk, n = packages["packed"], metas["packed"]["top_n"]
+    zero = (torch.zeros((n, cfg.descriptor_dim), dtype=torch.float16, device="cuda"),
+            torch.zeros((), dtype=torch.int32, device="cuda"))
+    zero_kernel_counts()
+    key_out = pk(rgb(key_frame[None]), *zero)
+    outs = [pk(rgb(frames[i:i + 1]), key_out[3], key_out[0]) for i in range(len(frames))]
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    print(f"native main path launches: {launches}")
+    check(launches["decode_threshold"] == launches["grid_nms"] == len(frames) + 1,
+          "the package launched decode and NMS once a call")
+    key = (key_out[3], key_out[0])
+
+    def eager_frames(f, imgs):
+        with torch.inference_mode():
+            return [torch.cat(t) for t in zip(*(f.frame(rgb(imgs[i:i + 1]), *key)
+                                                 for i in range(len(imgs))))]
+
+    got = [torch.cat(t) for t in zip(*(_packed_view(o, 1) for o in outs))]
+    with torch.inference_mode():
+        want_key = fe.frame(rgb(key_frame[None]), *zero)
+    want = eager_frames(fe, frames)
+    stats = {"keyframe": frame_agreement(_packed_view(key_out, 1), want_key,
+                                         "packed keyframe vs eager"),
+             "packed": frame_agreement(got, want, "packed vs eager frame")}
+    n_match = int((got[2][0] >= 0).sum())
+    print(f"native: the shifted frame has {n_match} matches to its keyframe")
+    check(n_match >= 30, f"{n_match} >= 30 matches on the shifted pair")
+    check(bool(torch.isfinite(got[1]).all()), "finite keypoints")
+    traced = traced_launches(lambda: pk(rgb(frames[:1]), *key),
+                             ("decode_row_kernel", "grid_nms_kernel"))
+    print(f"native: a traced package call launches {traced}")
+    check(traced == {"decode_row_kernel": 1, "grid_nms_kernel": 1},
+          "one decode and one NMS launch a package call")
+
+    # the other bundles, compiled in turn
+    for name in NATIVE_BUNDLES:
+        if name != "packed":
+            secs[f"export_compile_{name}"] = export_bundle(
+                frontends[NATIVE_BUNDLES[name][0]], name, work)
+            load(name)
+
+    # u8 gray B = 8 against the folded eager frame on the same frames as f32 RGB
+    fold = frontends["fold"]
+    with torch.inference_mode():
+        u8 = packages[f"u8gray_b{NATIVE_BATCH}"](torch.from_numpy(frames).cuda(), *key)
+        stats["u8gray"] = frame_agreement(_packed_view(u8, NATIVE_BATCH),
+                                          fold.frame(rgb(frames), *key),
+                                          f"u8 gray B = {NATIVE_BATCH} vs eager f32 RGB")
+    # the full ABI against its program run eagerly, on the keyframe and the
+    # shifted frame
+    k = cfg.max_keypoints
+    full_eager = FrameProgram(fe.model, cfg, "full").cuda()
+    fk = (torch.zeros((k, cfg.descriptor_dim), device="cuda"),
+          torch.zeros(k, dtype=torch.bool, device="cuda"))
+    with torch.inference_mode():
+        full_key = packages["full"](rgb(key_frame[None]), *fk)
+        stats["full"] = frame_agreement(
+            _packed_view(packages["full"](rgb(frames[:1]), full_key[6], full_key[3]), 1),
+            _packed_view(full_eager(rgb(frames[:1]), full_key[6], full_key[3]), 1),
+            "full ABI vs the program run eagerly")
+    # the float32 witness: the eager bf16 frame's and the package's distances
+    # from the float32 frame (TF32 off) on the same frames and keyframe
+    torch.backends.cudnn.allow_tf32 = False
+    want32 = eager_frames(native_frontend("f32"), frames)
+    torch.backends.cudnn.allow_tf32 = True
+    stats["eager_vs_f32"] = frame_agreement(want, want32, "eager bf16 vs float32 frame",
+                                            hold=False)
+    stats["package_vs_f32"] = frame_agreement(got, want32, "packed vs float32 frame",
+                                              hold=False)
+
+    # ms/frame in turns: the package, the live and the folded eager frame, at
+    # B = 1 (f32 RGB, live package) and B = 32 (u8 gray, folded package)
+    scenes = np.stack([shifted_pair(seed + 200 + i, H, W, 0)[0] for i in range(8)])
+    timing = {}
+    for b, name in ((1, "packed"), (32, "u8gray_b32")):
+        imgs = torch.from_numpy(np.resize(scenes, (b, H, W, 1))).cuda()
+        if b == 1:
+            imgs = rgb(np.resize(scenes, (1, H, W, 1)))
+        calls = {"package": lambda: packages[name](imgs, *key),
+                 "eager_live": lambda: fe.frame(imgs, *key),
+                 "eager_fold": lambda: fold.frame(imgs, *key)}
+        ab = {side: [] for side in calls}
+        for side in list(calls) + list(calls)[::-1]:
+            ab[side].append(host_median_ms(calls[side]) / b)
+        timing[f"b{b}"] = ab
+        print(f"native b{b} ms/frame ({name}): "
+              + ", ".join(f"{k_} {v}" for k_, v in ab.items()) + f" [{card}]")
+
+    # the host: synthetic frames and a replay of a panned scene, against
+    # Python's run of the same package on the replay
+    host, secs["host_build"] = host_build.result()
+    pool.shutdown()
+    print(f"native host built in {secs['host_build']:.2f} s")
+    check(subprocess.run([str(host["camera_selftest"])], capture_output=True,
+                         timeout=60).returncode == 0, "camera selftest")
+    wide = polygon_scene(np.random.default_rng(seed + 14), H, W + NATIVE_FRAMES)
+    pan = np.stack([wide[:, i:i + W] for i in range(NATIVE_FRAMES)])[..., None]
+    host_runs = {}
+    for name in ("packed", f"u8gray_b{NATIVE_BATCH}"):
+        meta = metas[name]
+        execs = NATIVE_FRAMES // meta["batch"]
+        raw = work / f"{name}.raw"
+        replay = np.ascontiguousarray(np.broadcast_to(pan, pan.shape[:-1] + (meta["channels"],)),
+                                      dtype=np.float32)
+        replay.tofile(raw)
+        synthetic = run_host(host["superpoint_serve"], ["--model", work / name, "--frames",
+                                                        execs, "--pipeline", "1,2,4"],
+                             f"{name} synthetic", card)
+        replayed = run_host(host["superpoint_serve"], ["--model", work / name, "--frames",
+                                                       execs, "--source", raw],
+                            f"{name} replay", card)
+        raw.unlink()
+        want_lines = replay_exec_lines(packages[name], meta, replay, "cuda")
+        got_lines = host_exec_lines(replayed)
+        print(f"host {name} replay exec lines {got_lines}, Python's {want_lines}")
+        check(got_lines == want_lines, f"host {name}: the replay's exec lines equal Python's")
+        host_runs[name] = dict(synthetic=[l for l in synthetic.splitlines() if "steady" in l],
+                               replay=[l for l in replayed.splitlines() if "steady" in l])
+    shutil.rmtree(work)
+    secs["phase"] = time.perf_counter() - t_phase
+    return dict(launches=launches, secs=secs, sizes=sizes, agreement=stats, timing=timing,
+                host=host_runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1866,7 +2260,11 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--work", type=Path, help=argparse.SUPPRESS)
+    # phase 14 compiles its bundles in processes of this script
+    ap.add_argument("--native-compile", choices=tuple(NATIVE_BUNDLES), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.native_compile:
+        return native_compile_worker(args.native_compile, args.work)
     if args.parallel_worker:
         return parallel_worker(args.parallel_worker, args.rank, args.world, args.port,
                                args.work)
@@ -1908,6 +2306,7 @@ def main(argv=None) -> int:
     from feature_point_cnn_tpu_torch.train.trainer import Trainer
     from feature_point_cnn_tpu_torch.utils.weights import released_path
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1916,6 +2315,13 @@ def main(argv=None) -> int:
     print("import survey: " + json.dumps(survey))
 
     # ---- 1. build -------------------------------------------------------
+    # phase 14's first AOTInductor compile (the slow one: Triton, the C++
+    # runtime) runs in a process of its own beside the build; phase 2 waits
+    # for it, so that nothing else shares the card with a check
+    kernels.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    native_work = Path(tempfile.mkdtemp(prefix="chip_smoke_native_",
+                                        dir=str(kernels.BUILD_DIR.parent)))
+    cold_compile = start_native_compile("packed", native_work)
     t0 = time.perf_counter()
     logs = kernels.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'cached'}")
@@ -1936,7 +2342,12 @@ def main(argv=None) -> int:
     batch_u8 = torch.from_numpy(frames).cuda()
     batch = (batch_u8.float() / 255.0).expand(-1, -1, -1, 3).contiguous()
 
+    print(f"[phase 1 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 2. decode ------------------------------------------------------
+    t0 = time.perf_counter()
+    native_compile_s = finish_native_compile(cold_compile, "packed", native_work)
+    print(f"native: waited {time.perf_counter() - t0:.2f} s for phase 14's first compile "
+          f"({native_compile_s:.2f} s, beside the build)")
     rng2 = np.random.default_rng(args.seed + 2)
     with torch.inference_mode():
         logits, _ = fe.model.features(batch)
@@ -1966,6 +2377,7 @@ def main(argv=None) -> int:
     print("decode: one CUDA launch a call (traced at B = 8 and on the ragged logits)")
     dec_k, dec32 = decoded["b8"], decoded["b32"]
 
+    print(f"[phase 2 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 3. NMS ---------------------------------------------------------
     nms_rounds = {}
     for name, scores in nms_inputs(dec_k, args.seed).items():
@@ -1987,6 +2399,7 @@ def main(argv=None) -> int:
             print(f"nms: {name} is one CUDA launch a call (traced), "
                   f"{max(nms_rounds[name])} rounds on the device")
 
+    print(f"[phase 3 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 4. end to end: the main path ----------------------------------
     n = min(256, cfg.max_keypoints)
     decode_threshold_cuda.launches = 0
@@ -2036,6 +2449,7 @@ def main(argv=None) -> int:
     del fe32
     torch.backends.cudnn.allow_tf32 = True
 
+    print(f"[phase 4 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 5. timing ------------------------------------------------------
     scenes = np.stack([shifted_pair(args.seed + 200 + i, H, W, 0)[0]
                        for i in range(8)])
@@ -2190,6 +2604,7 @@ def main(argv=None) -> int:
               f"({r['b32']['bound_share']:.2f} of cold) [{card}]")
     del flush, logits32, dec32, decoded, ragged   # out of the training phases' peak
 
+    print(f"[phase 5 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 6. descriptor loss: kernels against the plain version ----------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2282,6 +2697,7 @@ def main(argv=None) -> int:
           f"({prod_flop / yard[False] / 1e9:.1f} TFLOP/s), allow_tf32 {yard[True]:.4f} ms "
           f"({prod_flop / yard[True] / 1e9:.1f} TFLOP/s), writing the (B, N, N) product [{card}]")
 
+    print(f"[phase 6 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 7. the training path at full width -----------------------------
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.perf_counter()
@@ -2355,6 +2771,7 @@ def main(argv=None) -> int:
     check(abs(gate_loss["on"] - gate_loss["off"]) <= 1e-4 * abs(gate_loss["off"]),
           "gate off gives the same loss to rtol 1e-4")
 
+    print(f"[phase 7 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 8. training timing ----------------------------------------------
     step_ms, peak_mb = {"on": [], "off": []}, {}
     for gate in ("on", "off", "off", "on"):
@@ -2480,15 +2897,19 @@ def main(argv=None) -> int:
     del d_req, wd_req, v_k, v_p, d_t, wd_t, desc2, batch_t
     torch.cuda.empty_cache()
 
+    print(f"[phase 8 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 9. self-labeling -------------------------------------------------
     sl = selflabel_phase(args.seed, card)
 
+    print(f"[phase 9 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 10. two-view evaluation ------------------------------------------
     ev = eval_phase(args.seed, card)
 
+    print(f"[phase 10 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 11. the training data path ---------------------------------------
     td = train_data_phase(args.seed, card, survey)
 
+    print(f"[phase 11 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 12. tracking, bundle adjustment, VGG and the command line --------
     sc = tracking_ba_vgg_cli_phase(args.seed, card, td["work"] / "packed")
     for r in rows[:2]:
@@ -2507,6 +2928,7 @@ def main(argv=None) -> int:
     for r in rows[2:]:
         r["graph_replay_kernels_traced"] = td["graph_launches"].get("superpoint")
 
+    print(f"[phase 12 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 13. the parallel layer -------------------------------------------
     pa = parallel_phase(args.seed, card, sl["work"], td["work"] / "packed")
     for r in rows:
@@ -2514,6 +2936,15 @@ def main(argv=None) -> int:
         # ranks, then the NCCL rank), each counted from 0 before its path
         r["launches_parallel"] = pa["launches"][r["name"]]
         r["launches_parallel_by_rank"] = pa["by_rank"][r["name"]]
+    print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]")
+    # ---- 14. export and native serving -----------------------------------
+    na = native_phase(args.seed, card, fe, native_work, native_compile_s)
+    print(f"[phase 14 done at {time.perf_counter() - t_start:.1f} s]")
+    for r in rows:
+        # wrapper launches of phase 14's main path: the package's calls in
+        # this process (keyframe and 8 frames); the host's are its own
+        r["launches_native"] = na["launches"][r["name"]]
+    print(json.dumps({"phase14": {k: v for k, v in na.items() if k != "launches"}}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,9 @@ check), draw the matches and the frame rate.  Runs headless
 (``source="synthetic"``, ``max_frames``, ``show=False``) so the loop can be
 tested and timed without a webcam or a display.
 
-Keys (with a window): q quit, s set keyframe, b toggle blur.  't' exports
-the serving program in the JAX package; that export is ROADMAP §1 item 7,
-not ported, and raises here.
+Keys (with a window): q quit, s set keyframe, b toggle blur, t export the
+native serving bundle (`SuperPointFrontend.export_native`) to
+``export_live/``, as the JAX demo does.
 """
 
 from __future__ import annotations
@@ -119,9 +119,9 @@ def run_demo(
                 if k == ord("b"):
                     do_blur = not do_blur
                 if k == ord("t"):
-                    raise NotImplementedError(
-                        "exporting the serving program is ROADMAP §1 item 7 "
-                        "(export and native serving), not ported yet")
+                    out = "export_live"
+                    frontend.export_native(out, (height, width))
+                    print(f"Model saved to {out}/, 't' pressed.")
             if max_frames and frames >= max_frames:
                 break
     finally:

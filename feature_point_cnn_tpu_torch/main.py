@@ -8,7 +8,9 @@ same subcommands, flags and defaults.
       --magic-point-weights CKPT                                           # SuperPoint
   python -m feature_point_cnn_tpu_torch.main train --coco-path D --magic-point
   python -m feature_point_cnn_tpu_torch.main inference --weights-path W [--source 0]
-  python -m feature_point_cnn_tpu_torch.main export --weights-path W --raw-weights w.npz
+  python -m feature_point_cnn_tpu_torch.main export --weights-path W --out extract.pt2
+  python -m feature_point_cnn_tpu_torch.main export --weights-path W --pjrt-out DIR \
+      [--abi packed|full] [--top-n N] [--batch B] [--input-dtype u8] [--gray]
 
 Under ``torchrun --nproc-per-node=N -m feature_point_cnn_tpu_torch.main
 train ...`` each rank joins the job (`parallel/distributed.py::initialize`,
@@ -18,11 +20,12 @@ NCCL with a card a rank) and trains data-parallel; outside torchrun
 Weights paths are ``weights/*.npz`` snapshots or directories of the port's
 checkpoints (`utils/checkpoint.py`).  Everything runs on the card; each
 subcommand's body is a function of ``(opt, config, device)`` that tests
-call with ``device="cpu"``.  Export writes the portable ``.npz`` snapshot
-only: the StableHLO (``--out``) and PJRT (``--pjrt-out``) routes are ROADMAP
-§1 item 7 and exit with a message.  The XLA compilation cache of the JAX
-CLI has no counterpart (the kernels cache their builds in
-``build/torch_kernels/``).
+call with ``device="cpu"``.  Export keeps JAX's flag names: ``--out``
+writes the `torch.export` extract program where JAX writes StableHLO, and
+``--pjrt-out`` the native serving bundle (an AOTInductor ``model.pt2`` and
+``meta.json``) where JAX writes a PJRT bundle.  The XLA compilation cache of
+the JAX CLI has no counterpart (the kernels cache their builds in
+``build/torch_kernels/``, the native packages in ``build/torch_serve/``).
 """
 
 from __future__ import annotations
@@ -31,11 +34,6 @@ import argparse
 from typing import Optional
 
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
-
-EXPORT_NOT_PORTED = (
-    "{what} export is ROADMAP §1 item 7 (export and native serving), not "
-    "ported yet; `export --raw-weights PATH` writes the portable .npz snapshot")
-
 
 def build_parser() -> argparse.ArgumentParser:
     cfg = SuperPointConfig()
@@ -102,16 +100,19 @@ def build_parser() -> argparse.ArgumentParser:
     ex = sub.add_parser("export")
     ex.add_argument("--weights-path", required=True)
     ex.add_argument("--out", default="superpoint_extract.shlo",
-                    help="StableHLO file (not ported: ROADMAP §1 item 7)")
+                    help="the extract program, saved by torch.export.save "
+                         "(load it with torch.export.load), unless --pjrt-out")
     ex.add_argument("--raw-weights", default=None,
                     help="write the portable single-file .npz weight snapshot "
                          "(utils/weights.py), loadable wherever --weights-path is")
     ex.add_argument("--pjrt-out", default=None,
-                    help="PJRT serving bundle (not ported: ROADMAP §1 item 7)")
+                    help="native serving bundle directory: model.pt2 (the frame "
+                         "program as an AOTInductor package, compiled for the "
+                         "device) and meta.json, for csrc/serve/superpoint_serve")
     ex.add_argument("--abi", default="packed", choices=["full", "packed"])
     ex.add_argument("--top-n", type=int, default=256)
     ex.add_argument("--batch", type=int, default=1,
-                    help="frames per PJRT execute (packed only)")
+                    help="frames a program call (packed only)")
     ex.add_argument("--fold-bn", action="store_true",
                     help="fold BatchNorms into the convolutions of the exported "
                          "program; the .npz snapshot keeps live BatchNorm")
@@ -175,21 +176,32 @@ def run_inference(opt, cfg: SuperPointConfig, device=None) -> dict:
 
 
 def run_export(opt, cfg: SuperPointConfig, device=None) -> None:
-    """Writes ``--raw-weights``; the StableHLO and PJRT routes exit.  The
-    snapshot keeps the live-BatchNorm topology whatever ``--fold-bn`` says,
-    as the JAX export does; no model runs, so ``device`` is unused."""
-    if opt.pjrt_out:
-        raise SystemExit(EXPORT_NOT_PORTED.format(what="PJRT (--pjrt-out)"))
-    if not opt.raw_weights:
-        raise SystemExit(EXPORT_NOT_PORTED.format(what=f"StableHLO (--out {opt.out})"))
-    from feature_point_cnn_tpu_torch.inference.wrapper import load_state
+    """``--pjrt-out`` writes the native bundle (`export_native`), else
+    ``--out`` the extract program (`export_program`), with the frontend on
+    ``device``.  ``--raw-weights`` also writes the portable ``.npz``
+    snapshot, which keeps the live-BatchNorm topology whatever ``--fold-bn``
+    says, as the JAX export does."""
+    from feature_point_cnn_tpu_torch.inference.wrapper import (
+        SuperPointFrontend,
+        load_state,
+    )
     from feature_point_cnn_tpu_torch.utils.weights import save_weights
 
-    step, state = load_state(opt.weights_path)
-    print(f"[export] loaded checkpoint step {step} from {opt.weights_path}")
-    save_weights(opt.raw_weights, state)
-    print(f"[export] raw weights -> {opt.raw_weights} (no StableHLO at "
-          f"{opt.out}: ROADMAP §1 item 7)")
+    if opt.fold_bn:
+        cfg = cfg.replace(fold_bn=True)
+    frontend = SuperPointFrontend(cfg, weights_path=opt.weights_path, device=device)
+    if opt.pjrt_out:
+        frontend.export_native(
+            opt.pjrt_out, (opt.H, opt.W), abi=opt.abi, top_n=opt.top_n,
+            batch=opt.batch, input_dtype=opt.input_dtype,
+            input_channels=1 if opt.gray else None,
+        )
+    else:
+        frontend.export_program(opt.out, (opt.H, opt.W))
+    if opt.raw_weights:
+        _, state = load_state(opt.weights_path)
+        save_weights(opt.raw_weights, state)
+        print(f"[export] raw weights -> {opt.raw_weights}")
 
 
 def run_train(opt, cfg: SuperPointConfig, device=None) -> None:

@@ -60,6 +60,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            if x.is_cuda and torch.compiler.is_exporting():
+                return self._exported_eval(x)
             return super().forward(x)
         if collectives.group() is not None:
             return self._group_forward(x)
@@ -75,6 +77,23 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
             self.num_batches_tracked += 1
         return y
+
+    def _exported_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval BatchNorm as a program exported on CUDA carries it: the
+        arithmetic of PyTorch's CUDA kernel for channels-last activations,
+        ``fma(w * (x - mean), rsqrt(var + eps), b)`` in float32, rounded
+        once to x's type (Inductor lowers `torch.addcmul` to a fused
+        multiply-add; `probe_torch_batchnorm.py` shows both on the card).
+        Inductor's own BatchNorm, ``(x - mean) * invstd * w + b`` unfused,
+        rounds otherwise, and a bf16 package would then move keypoints that
+        the eager frame keeps.  A CPU export keeps BatchNorm itself, which
+        runs the eager CPU kernel.  (Under ``torch.compile`` torch 2.11
+        reports `is_exporting` too, and compiles this form.)"""
+        c = (1, -1, 1, 1)
+        centred = self.weight.view(c) * (x.float() - self.running_mean.view(c))
+        y = torch.addcmul(self.bias.view(c), centred,
+                          torch.rsqrt(self.running_var + self.eps).view(c))
+        return y.to(x.dtype)
 
     def _group_forward(self, x: torch.Tensor) -> torch.Tensor:
         y, mean, var = _GroupBatchNorm.apply(x, self.weight, self.bias, self.eps,

@@ -10,8 +10,10 @@ takes the softmax there, and the thresholded (8, cells*8) tile leaves as 8
 contiguous output rows.  The softmax never reaches device memory.
 
 Plain version: `softmax65` + `restore_prob_map` + threshold.  The wrapper
-takes it only for a CPU tensor; for a CUDA tensor it launches the kernel or
-raises.
+calls the custom op ``fpc::decode_threshold``, whose CPU implementation is
+the plain version and whose CUDA implementation launches the kernel or
+raises; `torch.export` keeps the op in the graph, so an exported program
+reaches the kernel as eager code does.
 """
 
 from __future__ import annotations
@@ -61,13 +63,23 @@ def decode_threshold_plain(
     return torch.where(prob >= threshold, prob, 0.0)
 
 
-def decode_threshold_cuda(
-    logits: torch.Tensor, cell: int, threshold: float
-) -> torch.Tensor:
-    """The decode kernel on a CUDA tensor, its plain version on a CPU one.
-    ``decode_threshold_cuda.launches`` counts kernel runs."""
-    if not logits.is_cuda:
-        return decode_threshold_plain(logits, cell, threshold)
+# the op's schema; `csrc/serve/fpc_ops.cc` defines the same string for the
+# native host, which registers the op without Python
+SCHEMA = "(Tensor logits, int cell, float threshold) -> Tensor"
+
+
+@torch.library.custom_op("fpc::decode_threshold", mutates_args=(),
+                         device_types="cpu", schema=SCHEMA)
+def decode_threshold_op(logits: torch.Tensor, cell: int,
+                        threshold: float) -> torch.Tensor:
+    """``fpc::decode_threshold``: the plain version on the CPU, the kernel
+    on CUDA (`_launch`).  Exported programs hold this op, so eager code and
+    an exported program reach the kernel through one route."""
+    return decode_threshold_plain(logits, cell, threshold)
+
+
+@decode_threshold_op.register_kernel("cuda")
+def _launch(logits: torch.Tensor, cell: int, threshold: float) -> torch.Tensor:
     if cell != 8 or logits.dim() != 4 or logits.shape[-1] != 65:
         raise ValueError(f"the decode kernel takes cell 8 and (B, Hc, Wc, 65) "
                          f"logits, got cell {cell}, {tuple(logits.shape)}")
@@ -86,6 +98,21 @@ def decode_threshold_cuda(
     check_launch(err, "decode_threshold_launch")
     decode_threshold_cuda.launches += 1
     return out
+
+
+@decode_threshold_op.register_fake
+def _(logits: torch.Tensor, cell: int, threshold: float) -> torch.Tensor:
+    b, hc, wc, _ = logits.shape
+    return logits.new_empty((b, hc * cell, wc * cell), dtype=torch.float32)
+
+
+def decode_threshold_cuda(
+    logits: torch.Tensor, cell: int, threshold: float
+) -> torch.Tensor:
+    """The decode kernel on a CUDA tensor, its plain version on a CPU one,
+    both through ``fpc::decode_threshold``.
+    ``decode_threshold_cuda.launches`` counts kernel runs."""
+    return decode_threshold_op(logits, cell, threshold)
 
 
 decode_threshold_cuda.launches = 0

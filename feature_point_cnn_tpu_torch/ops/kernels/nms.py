@@ -12,8 +12,9 @@ scratch instead (`nms_layout`).
 
 Plain version: the separable max-pool loop of `nms.py:41-109` on the same
 priority key; it is also the port's `ops/detection.py:grid_nms`.  The
-wrapper takes it only for a CPU tensor; for a CUDA tensor it launches the
-kernel or raises.
+wrapper calls the custom op ``fpc::grid_nms``, whose CPU implementation is
+the plain version and whose CUDA implementation launches the kernel or
+raises; `torch.export` keeps the op in the graph.
 """
 
 from __future__ import annotations
@@ -100,24 +101,43 @@ def _maxpool_separable(x: torch.Tensor, radius: int) -> torch.Tensor:
     return F.max_pool2d(y, (1, k), stride=1, padding=(0, radius))[:, 0]
 
 
-def _plain_loop(scores: torch.Tensor, dist_thresh: int, num_iters: int):
-    """The plain version's rounds in turn: yields each round's winners and,
-    when running to convergence, which frames held a candidate as it
-    began."""
-    remaining = nms_priority_key(scores, dist_thresh)
-    cap = num_iters if num_iters > 0 else scores.shape[-2] * scores.shape[-1]
-    for _ in range(cap):
-        left = None
-        if num_iters == 0:
-            left = (remaining > 0.0).flatten(1).any(1)
-            if not bool(left.any()):
-                return
-        winners = (remaining > 0.0) & (
-            remaining == _maxpool_separable(remaining, dist_thresh)
-        )
-        yield winners, left
-        dead = _maxpool_separable(winners.float(), dist_thresh) > 0.0
-        remaining = torch.where(dead, 0.0, remaining)
+def _round(remaining: torch.Tensor, keep: torch.Tensor, rounds: torch.Tensor,
+           dist_thresh: int):
+    """One suppression round on the plain version's state: the remaining
+    priority keys, the kept mask, and each frame's rounds (counted while
+    the frame holds a candidate as the round begins)."""
+    left = (remaining > 0.0).flatten(1).any(1)
+    winners = (remaining > 0.0) & (
+        remaining == _maxpool_separable(remaining, dist_thresh)
+    )
+    dead = _maxpool_separable(winners.float(), dist_thresh) > 0.0
+    return (torch.where(dead, 0.0, remaining), keep | winners,
+            rounds + left.to(torch.int32))
+
+
+def _plain_nms(scores: torch.Tensor, dist_thresh: int, num_iters: int = 0):
+    """`grid_nms_plain` and each frame's rounds ``(B,)`` int32."""
+    state = (nms_priority_key(scores, dist_thresh),
+             torch.zeros(scores.shape, dtype=torch.bool, device=scores.device),
+             torch.zeros(scores.shape[:1], dtype=torch.int32, device=scores.device))
+
+    def body(*s):
+        return _round(*s, dist_thresh)
+
+    if num_iters > 0:
+        for _ in range(num_iters):
+            state = body(*state)
+    elif torch.compiler.is_exporting():
+        # an exported program carries the data-dependent loop as a while_loop
+        from torch._higher_order_ops.while_loop import while_loop
+
+        state = while_loop(lambda remaining, *_: (remaining > 0.0).any(), body, state)
+    else:
+        for _ in range(scores.shape[-2] * scores.shape[-1]):
+            if not bool((state[0] > 0.0).any()):
+                break
+            state = body(*state)
+    return torch.where(state[1], scores, 0.0), state[2]
 
 
 def grid_nms_plain(
@@ -130,33 +150,33 @@ def grid_nms_plain(
     every remaining candidate that is the maximum of its window, then
     zeroes the windows of the kept points.  ``num_iters=0`` runs rounds
     until no candidate is left (exact greedy at any chain depth, capped at
-    H*W rounds); a positive value runs that many rounds.
+    H*W rounds; under `torch.export` a ``while_loop``); a positive value
+    runs that many rounds.
     """
-    keep = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
-    for winners, _ in _plain_loop(scores, dist_thresh, num_iters):
-        keep |= winners
-    return torch.where(keep, scores, 0.0)
+    return _plain_nms(scores, dist_thresh, num_iters)[0]
 
 
 def plain_rounds(scores: torch.Tensor, dist_thresh: int) -> list:
     """Each frame's rounds in `grid_nms_plain`'s loop to convergence: what
     the kernel reports in ``grid_nms_cuda.last_rounds``."""
-    rounds = torch.zeros(scores.shape[0], dtype=torch.int64, device=scores.device)
-    for _, left in _plain_loop(scores, dist_thresh, 0):
-        rounds += left
-    return rounds.tolist()
+    return _plain_nms(scores, dist_thresh)[1].tolist()
 
 
-def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
-    """The NMS kernel on a CUDA tensor, its plain version on a CPU one.
+# the op's schema; `csrc/serve/fpc_ops.cc` defines the same string for the
+# native host, which registers the op without Python
+SCHEMA = "(Tensor scores, int dist_thresh) -> (Tensor, Tensor)"
 
-    ``grid_nms_cuda.launches`` counts kernel runs.  ``last_rounds`` is the
-    latest run's ``(B,)`` int32 device tensor of suppression rounds a frame;
-    it is written on the stream, so read it after a synchronise.  Nothing is
-    read back on the host.
-    """
-    if not scores.is_cuda:
-        return grid_nms_plain(scores, dist_thresh)
+
+@torch.library.custom_op("fpc::grid_nms", mutates_args=(), device_types="cpu",
+                         schema=SCHEMA)
+def grid_nms_op(scores: torch.Tensor, dist_thresh: int):
+    """``fpc::grid_nms``: ``(kept scores, rounds (B,) int32)``, the plain
+    loop on the CPU, the kernel on CUDA (`_launch`)."""
+    return _plain_nms(scores, dist_thresh)
+
+
+@grid_nms_op.register_kernel("cuda")
+def _launch(scores: torch.Tensor, dist_thresh: int):
     if scores.dim() != 3 or scores.dtype != torch.float32:
         raise ValueError(f"want (B, H, W) float32, got {tuple(scores.shape)} "
                          f"{scores.dtype}")
@@ -185,7 +205,25 @@ def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
     check_launch(err, "grid_nms_launch")
     grid_nms_cuda.launches += 1
     grid_nms_cuda.last_rounds = rounds
-    return out
+    return out, rounds
+
+
+@grid_nms_op.register_fake
+def _(scores: torch.Tensor, dist_thresh: int):
+    return (torch.empty_like(scores),
+            scores.new_empty(scores.shape[:1], dtype=torch.int32))
+
+
+def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
+    """The NMS kernel on a CUDA tensor, its plain version (to convergence)
+    on a CPU one, both through ``fpc::grid_nms``.
+
+    ``grid_nms_cuda.launches`` counts kernel runs.  ``last_rounds`` is the
+    latest kernel run's ``(B,)`` int32 device tensor of suppression rounds
+    a frame; it is written on the stream, so read it after a synchronise.
+    Nothing is read back on the host.
+    """
+    return grid_nms_op(scores, dist_thresh)[0]
 
 
 grid_nms_cuda.launches = 0

@@ -9,12 +9,14 @@ headless as `tests/test_inference.py::test_demo_headless` does;
 frontend loaded from a checkpoint directory gives the keypoints of one
 loaded from the same weights as ``.npz`` exactly.  The ``train`` and
 ``export --raw-weights`` subcommand functions run on a tiny packed split
-with ``device="cpu"``; the StableHLO and PJRT routes exit naming ROADMAP
-§1 item 7.
+with ``device="cpu"``; ``export --out`` writes the `torch.export` extract
+program and ``export --pjrt-out`` the native bundle, as
+`tests/test_export.py::test_cli_export_fold_bn_with_raw_weights` runs it.
 """
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -167,7 +169,8 @@ def test_train_and_export_subcommands_on_a_tiny_packed_split(packed_split, tmp_p
                            mp_state["encoder.conv1.weight"])
 
     raw = str(tmp_path / "w.npz")
-    _run(["export", "--weights-path", joint, "--raw-weights", raw, "--fold-bn"])
+    _run(["export", "--weights-path", joint, "--raw-weights", raw, "--fold-bn",
+          "--out", str(tmp_path / "extract.pt2")])
     kp_dir, d_dir = _frontend_keypoints(joint)
     kp_npz, d_npz = _frontend_keypoints(raw)
     for f in ("y", "x", "score", "valid"):
@@ -176,11 +179,49 @@ def test_train_and_export_subcommands_on_a_tiny_packed_split(packed_split, tmp_p
 
 
 def test_export_routes_that_are_not_ported_exit_naming_item_7(tmp_path):
-    with pytest.raises(SystemExit, match="item 7"):
-        _run(["export", "--weights-path", released_path()])
-    with pytest.raises(SystemExit, match="item 7"):
-        _run(["export", "--weights-path", released_path(), "--pjrt-out", "b",
-              "--raw-weights", str(tmp_path / "w.npz")])
-    assert not (tmp_path / "w.npz").exists()
+    """The export routes that exited naming ROADMAP §1 item 7 now write:
+    ``--out`` the extract program, which `torch.export.load` reads back and
+    which gives the frontend's keypoints; ``train`` without data still
+    exits."""
+    prog = tmp_path / "extract.pt2"
+    _run(["--H", "48", "--W", "64", "--max-keypoints", "64", "export",
+          "--weights-path", released_path(), "--out", str(prog)])
+    img = np.random.default_rng(1).random((1, 48, 64, 3)).astype(np.float32)
+    with torch.no_grad():
+        y, x, score, valid, desc = torch.export.load(str(prog)).module()(
+            torch.from_numpy(img))
+    fe = SuperPointFrontend(SuperPointConfig(max_keypoints=64),
+                            weights_path=released_path(), device="cpu")
+    kp, want_desc = fe.extract(img)
+    assert valid.shape == (1, 64) and desc.shape == (1, 64, 128)
+    for got, want in ((y, kp.y), (x, kp.x), (score, kp.score), (valid, kp.valid),
+                      (desc, want_desc)):
+        assert torch.equal(got, want)
     with pytest.raises(SystemExit, match="--synthetic-path or --coco-path"):
         _run(["train"])
+
+
+def test_cli_export_native_fold_bn_with_raw_weights(tmp_path):
+    """`export --pjrt-out --fold-bn --raw-weights`
+    (`tests/test_export.py::test_cli_export_fold_bn_with_raw_weights`): the
+    bundle loads and runs at its meta's shapes, and the portable snapshot
+    keeps the live-BatchNorm topology."""
+    from torch._inductor import aoti_load_package
+
+    from feature_point_cnn_tpu_torch.inference.wrapper import DTYPES
+    from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+    from feature_point_cnn_tpu_torch.utils.weights import save_weights
+
+    model = SuperPoint(CFG, generator=torch.Generator().manual_seed(0))
+    src, out, snap = tmp_path / "src.npz", tmp_path / "bundle", tmp_path / "snap.npz"
+    save_weights(str(src), model.state_dict())
+    _run(["--H", "48", "--W", "64", "--max-keypoints", "32", "export",
+          "--weights-path", str(src), "--pjrt-out", str(out), "--abi", "packed",
+          "--top-n", "8", "--fold-bn", "--raw-weights", str(snap)])
+    meta = json.loads((out / "meta.json").read_text())
+    assert meta["top_n"] == 8 and meta["max_keypoints"] == 32
+    loaded = aoti_load_package(str(out / "model.pt2"))
+    args = [torch.zeros(s["shape"], dtype=DTYPES[s["dtype"]]) for s in meta["inputs"]]
+    outs = loaded(*args)
+    assert [list(t.shape) for t in outs] == [s["shape"] for s in meta["outputs"]]
+    assert any(k.endswith("running_mean") for k in load_variables(str(snap), device="cpu"))

@@ -25,7 +25,9 @@ beyond the kernels' limit and raises.  The training data path: k = 3
 steps a call as replays of the captured CUDA graph of the step against
 eager steps, float32, TF32 off, deterministic cuDNN, parameters within
 rtol 2e-4 + atol 2e-5 (measured equal); the folded frontend against live
-BatchNorm, prob maps within 1e-5 and the same keypoints.
+BatchNorm, prob maps within 1e-5 and the same keypoints.  The ``fpc`` ops
+and a frame program exported on the card: the plain versions' outputs
+exactly, the eager frame's at the frontend tests' tolerances.
 """
 
 import numpy as np
@@ -141,15 +143,18 @@ def test_nms_kernel_ramp_and_plateaus(rng, dist):
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(rng):
     """On a CUDA tensor a wrapper launches its kernel or raises; it never
-    hands the tensor to its plain version."""
-    with pytest.raises(ValueError):
-        decode_threshold_cuda(_cuda(np.zeros((1, 2, 2, 65))).half(), 8, 0.015)
-    with pytest.raises(ValueError):
-        decode_threshold_cuda(_cuda(np.zeros((1, 2, 2, 65))), 4, 0.015)
-    with pytest.raises(ValueError):
-        grid_nms_cuda(_cuda(np.zeros((1, 8, 8))), 8)
-    with pytest.raises(ValueError):
-        grid_nms_cuda(_cuda(np.zeros((8, 8))), 4)
+    hands the tensor to its plain version.  The checks are the ops' own, so
+    a direct ``torch.ops.fpc`` call raises as the wrappers do."""
+    for decode in (decode_threshold_cuda, torch.ops.fpc.decode_threshold):
+        with pytest.raises(ValueError):
+            decode(_cuda(np.zeros((1, 2, 2, 65))).half(), 8, 0.015)
+        with pytest.raises(ValueError):
+            decode(_cuda(np.zeros((1, 2, 2, 65))), 4, 0.015)
+    for nms in (grid_nms_cuda, torch.ops.fpc.grid_nms):
+        with pytest.raises(ValueError):
+            nms(_cuda(np.zeros((1, 8, 8))), 8)
+        with pytest.raises(ValueError):
+            nms(_cuda(np.zeros((8, 8))), 4)
 
 
 def _desc_loss_inputs(rng, b, hc, wc, dim, zero=False):
@@ -315,3 +320,46 @@ def test_folded_frontend_equals_live_bn_on_the_card(rng):
     assert torch.equal(kl.y[kl.valid], kf.y[kf.valid])
     assert torch.equal(kl.x[kl.valid], kf.x[kf.valid])
     torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.cuda
+def test_fpc_ops_and_the_exported_frame_program(rng):
+    """The ``fpc`` ops launch the kernels (counted) and return what the
+    plain versions return, the NMS op with its rounds a frame; a frame
+    program exported on the card holds both ops, and its module gives the
+    eager frame's outputs (float32, at `tests/test_torch_frontend.py`'s
+    tolerances: its BatchNorm may run another kernel than eager's) through
+    one decode and one NMS launch a call."""
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.inference.wrapper import (
+        KERNEL_OPS,
+        SuperPointFrontend,
+        graph_ops,
+    )
+
+    scores = _cuda(rng.random((3, 48, 64)) * (rng.random((3, 48, 64)) < 0.2))
+    n0 = grid_nms_cuda.launches
+    kept, rounds = torch.ops.fpc.grid_nms(scores, 4)
+    assert grid_nms_cuda.launches == n0 + 1
+    assert torch.equal(kept, grid_nms_plain(scores, 4))
+    assert rounds.tolist() == plain_rounds(scores, 4)
+
+    fe = SuperPointFrontend(SuperPointConfig(max_keypoints=64, compute_dtype="float32"),
+                            device="cuda")
+    ep, meta = fe.native_program((48, 64), top_n=32)
+    assert KERNEL_OPS <= graph_ops(ep)
+    image = _cuda(rng.random((1, 48, 64, 3)))
+    key = (torch.zeros((32, 128), dtype=torch.float16, device="cuda"),
+           torch.zeros((), dtype=torch.int32, device="cuda"))
+    d0, n0 = decode_threshold_cuda.launches, grid_nms_cuda.launches
+    with torch.no_grad():
+        got = ep.module()(image, *key)
+    assert (decode_threshold_cuda.launches, grid_nms_cuda.launches) == (d0 + 1, n0 + 1)
+    num, packed, match, desc = (t.cpu().numpy() for t in fe.frame(image, *key, top_n=32))
+    assert int(got[0]) == int(num[0])
+    same = (got[1].cpu().numpy()[..., :2] == packed[0, :, :2]).all(-1)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(got[1].cpu().numpy()[same], packed[0][same], atol=1e-5)
+    np.testing.assert_allclose(got[3].cpu().numpy()[same].astype(np.float32),
+                               desc[0][same].astype(np.float32), atol=1e-3)
+    assert (got[2].cpu().numpy() == match[0]).mean() >= 0.99

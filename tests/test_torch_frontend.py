@@ -13,6 +13,7 @@ keypoint to 1e-5, f16 descriptors to 1e-3 (one f16 ulp near 1).
 """
 
 import functools
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -163,17 +164,19 @@ def test_decode_gate_on_cpu_matches_prob_path():
 
 
 def test_port_imports_no_jax():
-    """Importing every port module, chip_smoke and bench_torch_nms pulls in
-    neither JAX nor the JAX package, nor cv2 or PIL: the port imports those
-    two inside the functions that need them (the H100 machine has both,
-    ROADMAP §3)."""
+    """Importing every port module (the native build's `inference/native.py`
+    among them), chip_smoke, bench_torch_nms and probe_torch_batchnorm
+    pulls in neither JAX nor the JAX package, nor cv2 or PIL: the port
+    imports those two inside the functions that need them (the H100
+    machine has both, ROADMAP §3).  The native host's sources include only
+    files of their own directory."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "feature_point_cnn_tpu_torch").rglob("*.py")
     )
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke', 'bench_torch_nms']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'bench_torch_nms', 'probe_torch_batchnorm']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'feature_point_cnn_tpu', 'cv2', 'PIL')]\n"
@@ -184,3 +187,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 15
+    assert "feature_point_cnn_tpu_torch.inference.native" in mods
+    # the native host's C++ includes its own copies, nothing of the JAX
+    # package's csrc/
+    serve = REPO / "feature_point_cnn_tpu_torch" / "csrc" / "serve"
+    for src in serve.iterdir():
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (serve / inc).exists(), (src.name, inc)
