@@ -118,7 +118,15 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    NMS on each rank); `preprocess_folder(use_mesh=True)` on 32 of phase
    9's scenes at batch 16 under phase 9's settings (bf16), equal to phase
    9's files bit for bit; `bundle_adjust` over the mesh at P = 64, L =
-   16,384, M = 4 (costs rtol 1e-5, poses and points 1e-4 of one rank).
+   16,384, M = 4 (costs rtol 1e-5, poses and points 1e-4 of one rank);
+   one 480x640 image W-sharded over the two ranks (480x320 a rank,
+   `shard_images_spatial` and `width_group`) through the released model:
+   float32 with TF32 off gathered equal to this process's forward (prob
+   2e-4, descriptors and logits 1e-4), both ranks' gathered outputs bit
+   for bit, 13 exchanges a forward none larger than the max pool's halo,
+   no wrapper launched; printed: the bf16 prob map's distance from this
+   process's and the top-256 keypoint overlap, bf16 ms a sharded forward
+   and peak MiB a rank at 480x640 and 1920x2560 against one process.
    One rank over NCCL: a joint step from fresh parameters on the global
    batch (loss rtol 1e-5 and gradients atol 1e-3 + rtol 1e-2 of this
    process's step; the parameters' difference is Adam's first update of
@@ -126,7 +134,9 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    epochs with ``train_steps_per_call`` 4 (graph replays with the step's
    collectives captured) and 1 (eager) at Adam's epsilon 1, each within
    rtol 2e-4 + atol 2e-5 of the other and the graphed one of this
-   process's non-distributed graphed epoch.  bf16 ms/step of the two-rank
+   process's non-distributed graphed epoch; a width mesh of one rank gives
+   the plain forward bit for bit, and `spatial.halo` over NCCL pads a block
+   bit for bit.  bf16 ms/step of the two-rank
    step and of this process's step, printed as two processes sharing one
    card, not scaling;
 14. export and native serving: the frame program of the released weights
@@ -168,7 +178,9 @@ replays shows); ``launches_tracking`` (rows 1-2) counts phase 12's tracking
 entry-point runs and ``launches_cli`` each wrapper's calls in phase 12's
 command line; ``launches_parallel`` each wrapper's calls in phase 13,
 summed over its processes (``launches_parallel_by_rank``: gloo rank 0,
-gloo rank 1, the NCCL rank), each counted from 0 before its path.
+gloo rank 1, the NCCL rank), each counted from 0 before its path, and
+``launches_spatial`` each wrapper's calls in phase 13's W-sharded forwards
+(none: the forward decodes with the plain version).
 
 ``launches_native`` counts each wrapper's launches in phase 14's main path
 (the package's calls in this process; the host launches through its own
@@ -448,27 +460,15 @@ def host_median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
                 card: str, named=()) -> None:
-    """Trace ``calls`` runs of ``fn()`` after 3 untraced ones: the device's
-    busy share of the wall time and the time by kernel, per ``unit`` (a call
-    holds ``per_call`` of them); with ``named``, also the time and launches
-    of the kernels whose names hold one of those strings.  Returns the wall
-    and device ms of the window and each named kernel's launches a call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: -e.self_device_time_total,
-    )
+    """Trace ``calls`` runs of ``fn()`` after 3 untraced ones (a complete
+    window, `traced_window`): the device's busy share of the wall time and
+    the time by kernel, per ``unit`` (a call holds ``per_call`` of them);
+    with ``named``, also the time and launches of the kernels whose names
+    hold one of those strings.  Returns the wall and device ms of the window
+    and each named kernel's launches a call."""
+    events, wall_ms = traced_window(fn, calls, warm=3, named=named)
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {what}: {calls} traced calls, wall {wall_ms:.3f} ms, "
           f"device {dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.3f} [{card}]")
@@ -491,34 +491,61 @@ def prof_window(fn, calls: int, per_call: int, what: str, unit: str,
                           for k in named})
 
 
-def trace_device(fn, calls: int = 3) -> dict:
-    """Each CUDA operation (kernel, copy, fill) of one run of ``fn()``, from
-    a traced window of ``calls`` runs after one untraced run: ``{name:
-    (launches a run, device ms a launch)}``.  A window that comes back with
-    no device record, or with records lost (an operation's count not a
-    whole number a run: the tracer now and then delivers none or part), is
-    traced again, three times at most."""
+TRACE_TRIES = 8
+
+
+def traced_window(fn, calls: int, warm: int = 1, named=()):
+    """The profiler's averages of a window of ``calls`` runs of ``fn()``,
+    traced after ``warm`` untraced runs, and the window's wall ms.
+
+    The tracer now and then loses device records (5 of 150 windows of a
+    frame call on the H100, in the package and the eager frame alike;
+    `probe_trace_records.py`): a kernel launched once a call then reads 1
+    or 2 records in 3 calls.  So, with ``named``, a window is taken only
+    when each kernel whose name holds one of them has a whole number of
+    records a call, the same as in the window before; else it is traced
+    again.  When ``TRACE_TRIES`` windows fall short, the check fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    ops = {}
-    for _ in range(3):
-        fn()
+    seen, last = [], None
+    for _ in range(TRACE_TRIES):
+        for _ in range(warm):
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ops = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
-        if ops and all(n == int(n) for n, _ in ops.values()):
-            break
-    return ops
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.count]
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {k: sum(e.count for e in device if k in e.key) for k in named}
+        whole = bool(device) and all(n % calls == 0 for n in counts.values())
+        if whole and (not named or counts == last):
+            return events, wall_ms
+        if last is not None or not whole:
+            print(f"trace: the named kernels' records in {calls} calls {counts} "
+                  f"({'not as before' if whole else 'records lost'}), traced again")
+        seen.append(counts)
+        last = counts if whole else None
+    check(False, f"no two windows in {TRACE_TRIES} agree on whole counts of the named "
+                 f"kernels' records in {calls} calls: {seen}")
+
+
+def trace_device(fn, calls: int = 3, named=()) -> dict:
+    """Each CUDA operation (kernel, copy, fill) of one run of ``fn()``, from
+    a traced window (`traced_window`, complete for the kernels ``named``)
+    of ``calls`` runs after one untraced run: ``{name: (launches a run,
+    device ms a launch)}``."""
+    events, _ = traced_window(fn, calls, named=named)
+    return {e.key: (e.count / calls, e.self_device_time_total / 1e3 / e.count)
+            for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def traced_launches(fn, kernel_names, calls: int = 3) -> dict:
     """CUDA launches of each of the named kernels in one run of ``fn()``."""
-    ops = trace_device(fn, calls)
+    ops = trace_device(fn, calls, kernel_names)
     return {k: int(sum(n for key, (n, _) in ops.items() if k in key))
             for k in kernel_names}
 
@@ -526,10 +553,9 @@ def traced_launches(fn, kernel_names, calls: int = 3) -> dict:
 def one_launch(fn, kernel: str, what: str, calls: int = 3) -> float:
     """Checks from a trace that a run of ``fn()`` is one CUDA launch, of
     ``kernel``; returns its device ms (mean over the traced runs)."""
-    ops = trace_device(fn, calls)
+    ops = trace_device(fn, calls, (kernel,))
     mine = [(n, ms) for key, (n, ms) in ops.items() if kernel in key]
-    # a traced window may lose a record now and then: 9 of 10 still read 1
-    check(len(ops) == 1 and len(mine) == 1 and round(mine[0][0]) == 1,
+    check(len(ops) == 1 and len(mine) == 1 and mine[0][0] == 1,
           f"{what}: one CUDA launch a call, of {kernel} (traced {ops})")
     return mine[0][1]
 
@@ -804,10 +830,11 @@ def selflabel_phase(seed: int, card: str) -> dict:
                       grid_nms_plain(scores, cfg.nms_dist)),
           "the NMS kernel equals plain grid_nms on the aggregated map")
 
-    # one traced batch: both kernels, the device's busy share; peak memory
+    # two traced batches (a lost record shows as a count not even): both
+    # kernels, the device's busy share; peak memory
     torch.cuda.reset_peak_memory_stats()
     trace = prof_window(lambda: fe.run_with_homography_adaptation(batch, homo, gens()),
-                        1, bsz, "selflabel batch", "image", card,
+                        2, bsz, "selflabel batch", "image", card,
                         named=("decode_row_kernel", "grid_nms_kernel"))
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     print(f"selflabel trace: launches a batch {trace['launches']}, device busy share "
@@ -1435,6 +1462,13 @@ PAR_TIMEOUT_S = 600
 # update is lr g / (|g| + 1), smooth in g, so float noise in a gradient
 # stays noise; at 1e-8 a near-zero entry moves by +-lr on its sign alone
 PAR_ADAM_EPS = 1.0
+# the W-sharded scenario of phase 13: the released model on one image split
+# over the two ranks at the serving point (480x320 a rank), and the large
+# point of its peak memory (bf16, B = 1)
+PAR_SPATIAL_HW = (H, W)
+PAR_SPATIAL_BIG_HW = (1920, 2560)
+PAR_SPATIAL_TIMED = 20
+PAR_SPATIAL_K = 256      # the top-K of the bf16 keypoint overlap
 
 
 def _deterministic(on: bool) -> None:
@@ -1480,6 +1514,157 @@ def _sharded_order(spec: dict, sorted_idx: np.ndarray, d: int, b: int, epoch: in
     orders = [rng.permutation(per) for _ in range(d)]
     return np.stack([np.stack([sorted_idx[r * per + orders[r][i * bl:(i + 1) * bl]]
                                for r in range(d)]) for i in range(n // b)])
+
+
+def spatial_image(seed: int, h: int, w: int, device) -> torch.Tensor:
+    """The W-sharded scenario's image: the scene of phase 4's first frame
+    at ``h x w``, ``(1, h, w, 3)`` float32 in [0, 1]."""
+    u8 = torch.from_numpy(shifted_pair(seed, h, w, SHIFT)[1][None])
+    return (u8.float() / 255.0).expand(-1, -1, -1, 3).contiguous().to(device)
+
+
+def spatial_model(dtype: str, device):
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+    from feature_point_cnn_tpu_torch.utils.weights import released_path
+
+    return SuperPointFrontend(SuperPointConfig(compute_dtype=dtype),
+                              weights_path=released_path(), device=device).model
+
+
+def peak_mib(fn) -> float:
+    """Device memory ``fn()`` takes at its peak above what was allocated
+    before it, MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def spatial_rank(spec: dict, world: int) -> dict:
+    """Phase 13's W-sharded scenario on a gloo rank: the released model's
+    forward on this rank's block of one image (`shard_images_spatial` on a
+    width mesh of ``world`` ranks, under `width_group`), at float32 with
+    TF32 off and at bf16: the outputs gathered, the exchanges' counts, and
+    the wrappers' launches (none: the forward decodes with the plain
+    version).  On the card, bf16 ms a sharded forward (both ranks at once)
+    and peak MiB at the serving point and at the large one."""
+    from feature_point_cnn_tpu_torch.parallel import spatial
+    from feature_point_cnn_tpu_torch.parallel.mesh import (
+        make_spatial_mesh,
+        shard_images_spatial,
+    )
+
+    dev, (h, w) = spec["device"], spec["spatial_hw"]
+    t0 = time.perf_counter()
+    smesh = make_spatial_mesh(world)
+    local = shard_images_spatial(spatial_image(spec["seed"], h, w, dev), smesh)
+    out = {}
+    zero_kernel_counts()
+
+    def sharded(model, x):
+        with torch.inference_mode(), spatial.width_group(smesh.group):
+            return model(x)
+
+    for dtype in ("float32", "bfloat16"):
+        _deterministic(dtype == "float32")
+        model = spatial_model(dtype, dev)
+        spatial.reset_counts()
+        outs = sharded(model, local)
+        counts = dict(spatial.counts)
+        out[dtype] = {"gathered": [spatial.gather_width(t, 2, smesh.group).cpu()
+                                   for t in outs],
+                      "local_shapes": [list(t.shape) for t in outs], "counts": counts}
+    if dev == "cuda":
+        torch.distributed.barrier()
+        out["ms"] = host_median_ms(lambda: sharded(model, local), runs=spec["spatial_timed"])
+        bh, bw = spec["spatial_big_hw"]
+        big = torch.rand((1, bh, bw // world, 3), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(spec["seed"]))
+        out["peak_mib"] = {"serving": peak_mib(lambda: sharded(model, local)),
+                           "large": peak_mib(lambda: sharded(model, big))}
+        del big
+    out["launches"] = kernel_counts()
+    out["s"] = time.perf_counter() - t0
+    _deterministic(True)
+    return out
+
+
+def spatial_one_rank(spec: dict) -> dict:
+    """The NCCL rank's part: a width mesh of one rank gives the plain
+    forward bit for bit, and `spatial.halo` over NCCL pads a block with the
+    op's value bit for bit."""
+    import math
+
+    import torch.nn.functional as F
+
+    from feature_point_cnn_tpu_torch.parallel import spatial
+    from feature_point_cnn_tpu_torch.parallel.mesh import (
+        make_spatial_mesh,
+        shard_images_spatial,
+    )
+
+    dev, (h, w) = spec["device"], spec["spatial_hw"]
+    _deterministic(True)
+    smesh = make_spatial_mesh(1)
+    images = spatial_image(spec["seed"], h, w, dev)
+    model = spatial_model("float32", dev)
+    x = torch.randn((1, 4, 6, 10), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(spec["seed"]))
+    zero_kernel_counts()
+    with torch.inference_mode():
+        plain = model(images)
+        spatial.reset_counts()
+        with spatial.width_group(smesh.group):
+            got = model(shard_images_spatial(images, smesh))
+            forward_exchanges = spatial.counts["exchanges"]
+            pads = (spatial.halo(x, 3, 2), spatial.halo(x, 1, 0, -math.inf))
+    return {"bit_equal": all(torch.equal(a, b) for a, b in zip(got, plain)),
+            "forward_exchanges": forward_exchanges,
+            "halo_exchanges": spatial.counts["exchanges"] - forward_exchanges,
+            "halo_equal": (torch.equal(pads[0], F.pad(x, (3, 2)))
+                           and torch.equal(pads[1], F.pad(x, (1, 0), value=-math.inf))),
+            "launches": kernel_counts()}
+
+
+def spatial_reference(spec: dict) -> dict:
+    """This process's one-process forward of the W-sharded scenario's
+    image: float32 (TF32 off) outputs, the bf16 prob map and its top-K
+    keypoints; on the card bf16 ms a forward and peak MiB at the serving
+    and the large point."""
+    dev, (h, w) = spec["device"], spec["spatial_hw"]
+    images = spatial_image(spec["seed"], h, w, dev)
+    ref = {}
+    for dtype in ("float32", "bfloat16"):
+        _deterministic(dtype == "float32")
+        model = spatial_model(dtype, dev)
+        with torch.inference_mode():
+            ref[dtype] = [t.cpu() for t in model(images)]
+    ref["keypoints"] = spatial_keypoints(ref["bfloat16"][0], dev)
+    if dev == "cuda":
+        bh, bw = spec["spatial_big_hw"]
+        big = torch.rand((1, bh, bw, 3), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(spec["seed"]))
+        with torch.inference_mode():
+            ref["ms"] = host_median_ms(lambda: model(images), runs=spec["spatial_timed"])
+            ref["peak_mib"] = {"serving": peak_mib(lambda: model(images)),
+                               "large": peak_mib(lambda: model(big))}
+        del big
+    del model
+    _deterministic(False)
+    return ref
+
+
+def spatial_keypoints(prob: torch.Tensor, device):
+    """The top-`PAR_SPATIAL_K` keypoints of a whole prob map, ``(y, x,
+    valid)``."""
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.ops.detection import extract_keypoints
+
+    kp = extract_keypoints(prob.to(device), SuperPointConfig(max_keypoints=PAR_SPATIAL_K))
+    return kp.y.cpu(), kp.x.cpu(), kp.valid.cpu()
 
 
 def parallel_worker(role: str, rank: int, world: int, port: int, work: Path) -> int:
@@ -1539,6 +1724,7 @@ def parallel_worker(role: str, rank: int, world: int, port: int, work: Path) -> 
                     out["nccl_ops"] = {n: c for n, (c, _) in ops.items()
                                        if "nccl" in n.lower()}
             del tr
+        out["spatial_one"] = spatial_one_rank(spec)
         torch.save(out, work / f"{role}_{rank}.pt")
         torch.distributed.destroy_process_group()
         return 0
@@ -1628,6 +1814,9 @@ def parallel_worker(role: str, rank: int, world: int, port: int, work: Path) -> 
     out["ba"] = {"poses": poses.cpu(), "points": points.cpu(), "costs": costs.cpu()}
     out["launches"] = launches
 
+    # 7. one image W-sharded over the two ranks (its launches apart)
+    out["spatial"] = spatial_rank(spec, world)
+
     # bf16 ms/step, both ranks at once on the one card
     _deterministic(False)
     cfg = cfg32.replace(compute_dtype="bfloat16")
@@ -1687,6 +1876,60 @@ def _launch_ranks(role: str, world: int, work: Path) -> list:
     return [torch.load(work / f"{role}_{r}.pt", weights_only=False) for r in range(world)]
 
 
+def spatial_check(spec: dict, ref: dict, got: list, card: str) -> dict:
+    """Phase 13's W-sharded gates on the gloo ranks' outputs: float32
+    gathered = this process's forward (prob atol 2e-4, JAX's; logits and
+    descriptors 1e-4), the ranks' gathered outputs bit-identical, every
+    exchange halo-sized, no wrapper launched; the bf16 distance, keypoint
+    overlap and the cost printed."""
+    (h, w), d = spec["spatial_hw"], len(got)
+    err = {k: float((got[0]["float32"]["gathered"][i] - ref["float32"][i]).abs().max())
+           for i, k in enumerate(("prob", "desc", "logits"))}
+    same = all(torch.equal(a, b) for g in got[1:] for dtype in ("float32", "bfloat16")
+               for a, b in zip(g[dtype]["gathered"], got[0][dtype]["gathered"]))
+    counts = {dtype: got[0][dtype]["counts"] for dtype in ("float32", "bfloat16")}
+    # the largest buffer an exchange may carry: the max pool's (d, 2, B, 64,
+    # H/2, 1), its halo column from each side; its full-width input is W/2 wide
+    halo_cap = {dtype: d * 2 * 64 * (h // 2) * (4 if dtype == "float32" else 2)
+                for dtype in counts}
+    full_pool_input = 64 * (h // 2) * (w // 2) * 4
+    print(f"parallel spatial: one {h}x{w} image over {d} ranks sharing the card over gloo, "
+          f"{got[0]['float32']['local_shapes']} a rank; float32 (TF32 off) gathered vs "
+          f"this process's forward max|diff| prob {err['prob']:.3g}, desc {err['desc']:.3g}, "
+          f"logits {err['logits']:.3g}; ranks' gathered outputs bit-identical {same}; a "
+          f"forward's exchanges {counts['float32']} float32, {counts['bfloat16']} bf16 "
+          f"(the largest {counts['float32']['largest_bytes']} B against a full-width "
+          f"pool input of {full_pool_input} B); wrapper launches a rank "
+          f"{[g['launches'] for g in got]}; {[round(g['s'], 1) for g in got]} s a rank")
+    check(err["prob"] <= 2e-4 and err["desc"] <= 1e-4 and err["logits"] <= 1e-4,
+          "spatial float32: the gathered forward equals one process's (prob 2e-4, "
+          "descriptors and logits 1e-4)")
+    check(same, "spatial: every rank gathers the same outputs bit for bit")
+    check(all(c["exchanges"] == 13 and 0 < c["largest_bytes"] <= halo_cap[dtype]
+              for dtype, c in counts.items()),
+          "spatial: 13 exchanges a forward, none larger than the max pool's halo")
+    check(all(v == 0 for g in got for v in g["launches"].values()),
+          "spatial: the forward launches no wrapper")
+    prob16 = got[0]["bfloat16"]["gathered"][0]
+    dist16 = float((prob16 - ref["bfloat16"][0]).abs().max())
+    overlap = keypoint_overlap(spatial_keypoints(prob16, spec["device"]), ref["keypoints"])
+    out = {"err_f32": err, "bit_identical": same, "counts": counts,
+           "bf16_prob_dist": dist16, "bf16_topk_overlap": overlap,
+           "s": [g["s"] for g in got]}
+    print(f"parallel spatial bf16: prob max|sharded - one process| {dist16:.4g}, top-"
+          f"{PAR_SPATIAL_K} keypoint overlap {overlap:.4f}")
+    if spec["device"] == "cuda":
+        out.update(ms=[g["ms"] for g in got], one_ms=ref["ms"],
+                   peak_mib=[g["peak_mib"] for g in got], one_peak_mib=ref["peak_mib"])
+        print(f"parallel spatial cost, TWO PROCESSES SHARING ONE CARD (the route, not "
+              f"scaling): bf16 sharded forward {out['ms']} ms a rank against one process "
+              f"{ref['ms']:.3f} ms; {counts['bfloat16']['exchanges']} exchanges, "
+              f"{counts['bfloat16']['bytes']} B a forward; peak MiB a rank {out['peak_mib']} "
+              f"against one process {ref['peak_mib']} (serving {h}x{w}, large "
+              f"{spec['spatial_big_hw'][0]}x{spec['spatial_big_hw'][1]}, B = 1) [{card}]")
+    return out
+
+
 def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
                    spec_over: dict = None) -> dict:
     """Phase 13: the parallel layer.  Two ranks on the one card over gloo
@@ -1708,7 +1951,9 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
             "packed": str(packed), "bmp_dir": str(work / "bmp"), "sl_batch": SL_BATCH,
             "ba": list(BA_MAP), "extract_hw": [H, W], "timed_steps": PAR_TIMED_STEPS,
             "k": TD_K, "homo_num": HomographyConfig.for_preprocess().num,
-            "adam_eps": PAR_ADAM_EPS, **(spec_over or {})}
+            "adam_eps": PAR_ADAM_EPS, "spatial_hw": list(PAR_SPATIAL_HW),
+            "spatial_big_hw": list(PAR_SPATIAL_BIG_HW), "spatial_timed": PAR_SPATIAL_TIMED,
+            **(spec_over or {})}
     dev, (th, tw), b = spec["device"], spec["hw"], spec["batch"]
     (work / "spec.json").write_text(json.dumps(spec))
     (work / "bmp").mkdir()
@@ -1729,6 +1974,7 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
     problem, _, _ = synthetic_ba_problem(np.random.default_rng(seed + 120), *spec["ba"],
                                          device=dev)
     ba_ref = bundle_adjust(problem, iters=10)
+    sref = spatial_reference(spec)
     _deterministic(False)
     cfg = cfg32.replace(compute_dtype="bfloat16")
     one_ms = None
@@ -1839,6 +2085,8 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
     check(cerr <= 1e-5 and perr <= 1e-4 and xerr <= 1e-4,
           "sharded BA within rtol 1e-5 (costs) and 1e-4 (poses, points) of one rank")
 
+    sp = spatial_check(spec, sref, [r["spatial"] for r in ranks], card)
+
     # ---- one rank over NCCL: the graphed trainer ---------------------------
     # the reference: this process's k = 4 graphed epoch at the NCCL rank's
     # adam_eps
@@ -1930,6 +2178,16 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
     check(gp[2], f"NCCL: graphed epoch within rtol 2e-4 + atol 2e-5 of the non-distributed "
                  f"k = {k4} epoch")
 
+    one = nccl["spatial_one"]
+    print(f"parallel spatial {nccl['backend']} rank: a width mesh of one rank gives the "
+          f"plain forward bit for bit {one['bit_equal']} ({one['forward_exchanges']} "
+          f"exchanges); spatial.halo over {nccl['backend']} pads bit for bit "
+          f"{one['halo_equal']} ({one['halo_exchanges']} exchanges)")
+    check(one["bit_equal"] and one["forward_exchanges"] == 0,
+          "spatial: a width mesh of one rank is the plain forward bit for bit")
+    check(one["halo_equal"] and one["halo_exchanges"] == 2,
+          "spatial: the halo exchange over NCCL pads bit for bit")
+
     two_ms = [r.get("step_ms_bf16") for r in ranks]
     if on_card:
         print(f"parallel timing, TWO PROCESSES SHARING ONE CARD (not scaling): bf16 joint "
@@ -1939,11 +2197,14 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
                 for k in ranks[0]["launches"]}
     by_rank = {k: [r["launches"][k] for r in ranks] + [nccl["launches"][k]]
                for k in launches}
+    spatial_launches = {k: sum(r["spatial"]["launches"][k] for r in ranks)
+                        + one["launches"][k] for k in launches}
     shutil.rmtree(work)
     shutil.rmtree(sl_work)
     shutil.rmtree(packed.parent)
     return {"launches": launches, "by_rank": by_rank, "two_rank_ms": two_ms,
-            "one_process_ms": one_ms, "gloo_s": gloo_s}
+            "one_process_ms": one_ms, "gloo_s": gloo_s,
+            "launches_spatial": spatial_launches, "spatial": sp}
 
 
 NATIVE_FRAMES = 200      # frames of each host run in phase 14
@@ -2936,6 +3197,9 @@ def main(argv=None) -> int:
         # ranks, then the NCCL rank), each counted from 0 before its path
         r["launches_parallel"] = pa["launches"][r["name"]]
         r["launches_parallel_by_rank"] = pa["by_rank"][r["name"]]
+        # wrapper calls of phase 13's W-sharded forwards (both gloo ranks and
+        # the NCCL rank's width mesh of one): the forward decodes plainly
+        r["launches_spatial"] = pa["launches_spatial"][r["name"]]
     print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 14. export and native serving -----------------------------------
     na = native_phase(args.seed, card, fe, native_work, native_compile_s)

@@ -21,6 +21,10 @@ which is also what `running_var` takes (the unbiased variance rescaled by
 ``(n - 1) / n`` over the global ``n``).  `nn.SyncBatchNorm` would store the
 unbiased variance.
 
+Under a width group (`parallel/spatial.py`) the convolutions run
+W-sharded, exchanging their halos with the neighbouring ranks; BatchNorm in
+eval mode is per channel and needs nothing, and in train mode it raises.
+
 ``fold_bn=True`` is the serving topology (`blocks.py:163-228` of the JAX
 package): every convolution carries a bias and every BatchNorm is an
 ``nn.Identity``, so `models/fold.py::fold_batchnorm`'s ``state_dict`` loads
@@ -29,22 +33,36 @@ under the same names.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from feature_point_cnn_tpu_torch.device import constant
-from feature_point_cnn_tpu_torch.parallel import collectives
+from feature_point_cnn_tpu_torch.parallel import collectives, spatial
 
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if spatial.group() is not None:
+            return spatial.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                                  self.padding, self.dilation, self.groups)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                block_width: Optional[int] = None) -> torch.Tensor:
+        """``block_width``: under a width group, the block width of the
+        equally sharded grid the output joins (`parallel/spatial.py`);
+        unused without one."""
+        if spatial.group() is not None:
+            return spatial.conv_transpose2d(
+                x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+                self.padding, self.output_padding, self.groups, self.dilation,
+                block_width)
         return F.conv_transpose2d(
             x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
             self.padding, self.output_padding, self.groups, self.dilation,
@@ -63,6 +81,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             if x.is_cuda and torch.compiler.is_exporting():
                 return self._exported_eval(x)
             return super().forward(x)
+        if spatial.group() is not None:
+            raise ValueError("train-mode BatchNorm over a W-sharded image is not "
+                             "ported: its statistics would be this rank's block's")
         if collectives.group() is not None:
             return self._group_forward(x)
         # one statistics pass: with momentum 1 `F.batch_norm` leaves the batch

@@ -18,6 +18,13 @@ step does (`train/steps.py:15`).
 the JAX package): convolutions with a bias, no BatchNorm; load it with
 `models/fold.py::fold_batchnorm` of a live-BN ``state_dict``.  It cannot
 train.
+
+Under ``parallel.spatial.width_group(g)`` the eval forward takes each
+rank's block of columns (`parallel/mesh.py::shard_images_spatial`) and
+returns that block of all three outputs: ``prob (B, H, W/d)``, ``desc (B,
+Hc, Wc/d, D)`` and ``logits (B, Hc, Wc/d, 65)``.  The convolutions and the
+max pool exchange their halos with the neighbouring ranks; gradients flow
+back through the exchanges.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from feature_point_cnn_tpu_torch.models.blocks import (
     resnet_layer,
 )
 from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
+from feature_point_cnn_tpu_torch.parallel import spatial
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -52,7 +60,10 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.conv1(x)))
-        x = nn.functional.max_pool2d(x, 3, 2, 1)
+        if spatial.group() is not None:
+            x = spatial.max_pool2d(x, 3, 2, 1)
+        else:
+            x = nn.functional.max_pool2d(x, 3, 2, 1)
         return self.layer2(self.layer1(x))
 
 
@@ -82,10 +93,11 @@ class Descriptor(nn.Module):
         self.layer_out = resnet_layer(2, 256, descriptor_dim, 1, fold_bn)
 
     def forward(self, x: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn(self.up_sample(self.layer_in(x))))
-        # for odd Hc/Wc the doubling transposed conv overshoots by one
-        # row/col: crop to the embedding grid (superpoint.py:108-112)
         hc, wc = embeddings.shape[2:]
+        y = torch.relu(self.bn(self.up_sample(self.layer_in(x), wc)))
+        # for odd Hc/Wc the doubling transposed conv overshoots by one
+        # row/col: crop to the embedding grid (superpoint.py:108-112).  W-sharded,
+        # the overshoot lies on the last rank alone, and only it crops
         y = y[:, :, :hc, :wc]
         return self.layer_out(torch.cat([y, embeddings], dim=1))
 

@@ -24,6 +24,7 @@ from feature_point_cnn_tpu_torch.device import resolve_device
 from feature_point_cnn_tpu_torch.models.blocks import Conv2d
 from feature_point_cnn_tpu_torch.models.superpoint import _DTYPES
 from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
+from feature_point_cnn_tpu_torch.parallel import spatial
 
 # (in, out) channel pairs of the encoder
 ENCODER_DIMS: Tuple[Tuple[int, int], ...] = ((1, 64), (64, 64), (64, 128), (128, 128))
@@ -61,6 +62,9 @@ class VGGSuperPoint(nn.Module):
                 m.bias.zero_()
 
     def forward(self, image: torch.Tensor):
+        if spatial.group() is not None:
+            raise ValueError("the W-sharded forward covers the ResNet SuperPoint, "
+                             "not the VGG family")
         x = image.permute(0, 3, 1, 2).to(self.compute_dtype)
         last = len(ENCODER_DIMS) - 1
         for i in range(len(ENCODER_DIMS)):

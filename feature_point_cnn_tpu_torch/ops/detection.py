@@ -24,6 +24,7 @@ from feature_point_cnn_tpu_torch.ops.kernels.nms import (
 # the NMS kernel's plain version is the port's grid_nms (with nms_iters)
 from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_plain as grid_nms
 from feature_point_cnn_tpu_torch.ops.labels import restore_prob_map
+from feature_point_cnn_tpu_torch.parallel import spatial
 
 __all__ = [
     "Keypoints", "softmax65", "decode_prob_map", "nms_priority_key",
@@ -78,6 +79,9 @@ def extract_keypoints_from_scores(
     scores: torch.Tensor, config: SuperPointConfig
 ) -> Keypoints:
     """NMS + border strip + top-K on an already-thresholded score map."""
+    if spatial.group() is not None:
+        raise ValueError("keypoints of a W-sharded map are not ported: NMS to "
+                         "convergence is not local; gather the map first")
     b, h, w = scores.shape
     if use_kernel(config.use_cuda_nms, scores):
         scores = grid_nms_cuda(scores, config.nms_dist)

@@ -16,6 +16,11 @@ the identity; with one, even of one rank, they call the collective.  The
 module calls ``all_reduce``, and ``broadcast`` to replicate state, and
 nothing else: gloo carries CUDA tensors for those two collectives only, and
 two ranks that share one card run over gloo.
+
+The data group is one of two: the width group of `parallel/spatial.py`,
+over which one image is split along W, is set by its own ``with
+width_group(g)`` and read only by the modules' convolutions and pools.
+Its exchanges keep to the same rule, ``all_reduce`` alone.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The data mesh (`feature_point_cnn_tpu/parallel/mesh.py:21-62`).
+"""The data and width meshes (`feature_point_cnn_tpu/parallel/mesh.py`).
 
 A `DataMesh` is a 1-D mesh over ranks ``0 .. size - 1`` of the job, one
 device a rank.  Batches are split over it by rows and parameters are
@@ -10,8 +10,17 @@ JAX side.  Without a process group the mesh is this process alone.
 `make_mesh` keeps JAX's rule: the largest rank count that divides the
 batch.  A rank that the rule leaves out says so, holds ``rank = -1`` and
 takes no part in the mesh's collectives (they run over a subgroup of the
-mesh's ranks).  The spatial half of the JAX module (W-sharded convolutions
-with halo exchanges, `:64-85`) is not ported.
+mesh's ranks).
+
+The spatial half (`:64-85`): `make_spatial_mesh` is the same mesh on a
+``width`` axis, and `shard_images_spatial` gives each rank its block of
+columns of one image, the ``rank``-th of ``size`` equal blocks.  JAX's rule
+holds: the width must divide by the mesh size times the 8-px cell, so that
+cell boundaries fall on shard boundaries.  Where a width does not split,
+GSPMD quietly computes the image replicated; here the split raises instead.
+Run the model's forward on the block under
+``parallel.spatial.width_group(mesh.group)``: its convolutions and pools
+then exchange their halos with the neighbouring ranks.
 """
 
 from __future__ import annotations
@@ -20,10 +29,13 @@ import dataclasses
 import functools
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from feature_point_cnn_tpu_torch.parallel import collectives
+
+CELL = 8    # the model's total stride: cell boundaries fall on shard boundaries
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +86,7 @@ def make_mesh(
     n = mesh_size(world, n_devices, batch_size)
     group = dist.group.WORLD if n == world else _subgroup(n)
     if rank >= n:
-        print(f"[mesh] rank {rank} is outside the data mesh of ranks 0-{n - 1}"
+        print(f"[mesh] rank {rank} is outside the {axis} mesh of ranks 0-{n - 1}"
               f"{f' (batch {batch_size})' if batch_size else ''}: it takes no "
               f"part in the mesh's collectives")
         return DataMesh(n, -1, axis, group)
@@ -98,6 +110,36 @@ def shard_batch(batch: Dict[str, Any], mesh: DataMesh) -> Dict[str, Any]:
     global batch, as one host does in JAX)."""
     rows = batch_sharding(mesh, len(next(iter(batch.values()))))
     return {k: v[rows] for k, v in batch.items()}
+
+
+def make_spatial_mesh(n_devices: Optional[int] = None, axis: str = "width") -> DataMesh:
+    """The mesh over which one image is split along W: `make_mesh`'s rule on
+    a ``width`` axis."""
+    return make_mesh(n_devices, axis=axis)
+
+
+def spatial_sharding(mesh: DataMesh, width: int) -> slice:
+    """This rank's columns of an image ``width`` wide: the ``rank``-th of
+    ``mesh.size`` equal contiguous blocks.  JAX's rule: "Widths must divide
+    by the mesh size x the total stride (cell)"."""
+    if width % (mesh.size * CELL):
+        raise ValueError(f"a width of {width} does not split over {mesh.size} ranks: "
+                         f"widths must divide by the mesh size x the total stride "
+                         f"(cell), {mesh.size} x {CELL}")
+    if not mesh.member:
+        raise ValueError("this rank is outside the width mesh")
+    per = width // mesh.size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def shard_images_spatial(images: Any, mesh: DataMesh) -> Any:
+    """This rank's ``(B, H, W / d, C)`` block of a global ``(B, H, W, C)``
+    batch (numpy or a tensor, on the host or the device), as a compact copy
+    that holds no full-width storage."""
+    block = images[:, :, spatial_sharding(mesh, images.shape[2])]
+    if isinstance(block, torch.Tensor):
+        return block.clone(memory_format=torch.contiguous_format)
+    return np.ascontiguousarray(block)
 
 
 def _tensors(state: Any) -> List[torch.Tensor]:

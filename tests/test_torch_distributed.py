@@ -344,9 +344,19 @@ def _split(out, prefix):
 
 
 def _assert_ranks_bit_identical(job, name):
+    """The all-reduced gradients (where the scenario keeps them), then the
+    parameters and statistics, bit for bit across the ranks; a difference
+    is reported with its extent, so that a failure tells the gradient's sum
+    from the update."""
     a, b = job.result(name, 0), job.result(name, 1)
-    for k, v in _split(a, "state/").items():
-        assert np.array_equal(v, b[f"state/{k}"]), f"{name}: {k} differs across ranks"
+    for part in ("grad/", "state/"):
+        for k, v in _split(a, part).items():
+            w = b[f"{part}{k}"]
+            if not np.array_equal(v, w):
+                off = v != w
+                pytest.fail(f"{name}: {k} differs across ranks ({part[:-1]}: "
+                            f"{int(off.sum())} of {v.size} entries, at most "
+                            f"{float(np.abs(v - w).max()):.3g})")
 
 
 def _jax_step(name, variables):

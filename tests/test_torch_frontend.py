@@ -165,8 +165,8 @@ def test_decode_gate_on_cpu_matches_prob_path():
 
 def test_port_imports_no_jax():
     """Importing every port module (the native build's `inference/native.py`
-    among them), chip_smoke, bench_torch_nms and probe_torch_batchnorm
-    pulls in neither JAX nor the JAX package, nor cv2 or PIL: the port
+    among them), chip_smoke, bench_torch_nms and the two probes
+    (`probe_torch_batchnorm`, `probe_trace_records`) pulls in neither JAX nor the JAX package, nor cv2 or PIL: the port
     imports those two inside the functions that need them (the H100
     machine has both, ROADMAP §3).  The native host's sources include only
     files of their own directory."""
@@ -176,7 +176,8 @@ def test_port_imports_no_jax():
     )
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke', 'bench_torch_nms', 'probe_torch_batchnorm']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'bench_torch_nms', 'probe_torch_batchnorm',"
+        " 'probe_trace_records']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'feature_point_cnn_tpu', 'cv2', 'PIL')]\n"
