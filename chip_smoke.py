@@ -124,9 +124,16 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    float32 with TF32 off gathered equal to this process's forward (prob
    2e-4, descriptors and logits 1e-4), both ranks' gathered outputs bit
    for bit, 13 exchanges a forward none larger than the max pool's halo,
-   no wrapper launched; printed: the bf16 prob map's distance from this
-   process's and the top-256 keypoint overlap, bf16 ms a sharded forward
-   and peak MiB a rank at 480x640 and 1920x2560 against one process.
+   no wrapper launched; the same at 8 px a shard (480x16, float32) and
+   for a seeded VGG on the gray image (10 exchanges); `extract_spatial`
+   of the image at float32 and bf16: the ranks' outputs bit for bit, one
+   decode and one NMS launch a rank a call, at float32 >= 0.99 of this
+   process's `extract` keypoints with descriptors within 1e-4 where both
+   hold the keypoint (bf16 >= 0.9); printed: the bf16 prob map's distance
+   from this process's and the top-256 keypoint overlap, bf16 ms a
+   sharded forward and peak MiB a rank at 480x640 and 1920x2560 against
+   one process, bf16 ms a sharded extract against one process's extract,
+   ms a score-map gather, and the bytes a call carries.
    One rank over NCCL: a joint step from fresh parameters on the global
    batch (loss rtol 1e-5 and gradients atol 1e-3 + rtol 1e-2 of this
    process's step; the parameters' difference is Adam's first update of
@@ -135,8 +142,8 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    collectives captured) and 1 (eager) at Adam's epsilon 1, each within
    rtol 2e-4 + atol 2e-5 of the other and the graphed one of this
    process's non-distributed graphed epoch; a width mesh of one rank gives
-   the plain forward bit for bit, and `spatial.halo` over NCCL pads a block
-   bit for bit.  bf16 ms/step of the two-rank
+   the plain forward and `extract` bit for bit (`extract_spatial`), and
+   `spatial.halo` over NCCL pads a block bit for bit.  bf16 ms/step of the two-rank
    step and of this process's step, printed as two processes sharing one
    card, not scaling;
 14. export and native serving: the frame program of the released weights
@@ -179,8 +186,10 @@ entry-point runs and ``launches_cli`` each wrapper's calls in phase 12's
 command line; ``launches_parallel`` each wrapper's calls in phase 13,
 summed over its processes (``launches_parallel_by_rank``: gloo rank 0,
 gloo rank 1, the NCCL rank), each counted from 0 before its path, and
-``launches_spatial`` each wrapper's calls in phase 13's W-sharded forwards
-(none: the forward decodes with the plain version).
+``launches_spatial`` each wrapper's calls in phase 13's W-sharded scenario
+(the forwards decode with the plain version; each `extract_spatial` call
+launches one decode and one NMS a rank: two calls on each gloo rank, one
+on the NCCL rank's width mesh of one).
 
 ``launches_native`` counts each wrapper's launches in phase 14's main path
 (the package's calls in this process; the host launches through its own
@@ -377,6 +386,33 @@ def replay_exec_lines(model, meta: dict, frames: np.ndarray, device) -> list:
     return lines
 
 
+def untied_flips(a: dict, b: dict, t: float, radius: int, k: int, tol: float) -> tuple:
+    """The keypoints that one of two extracts ``a``, ``b`` of one image
+    (B = 1: fields ``y``, ``x``, ``score``, ``valid``) holds and the other
+    does not, and those of them that no tie of two maps within ``tol``
+    explains: a score within ``tol`` of the threshold ``t``, of a keypoint
+    of the other extract within the NMS ``radius``, or of the K-th score
+    where ``k`` keypoints fill the extract.  ``(flips, untied)``."""
+    def points(e):
+        v = e["valid"][0]
+        return {(float(y), float(x)): float(sc) for y, x, sc in
+                zip(e["y"][0][v].tolist(), e["x"][0][v].tolist(), e["score"][0][v].tolist())}
+
+    pa, pb = points(a), points(b)
+    flips = untied = 0
+    for mine, other in ((pa, pb), (pb, pa)):
+        last = min(mine.values()) if len(mine) == k else None
+        for (y, x), sc in mine.items():
+            if (y, x) in other:
+                continue
+            flips += 1
+            tied = (abs(sc - t) <= tol or (last is not None and abs(sc - last) <= tol)
+                    or any(abs(oy - y) <= radius and abs(ox - x) <= radius
+                           and abs(osc - sc) <= tol for (oy, ox), osc in other.items()))
+            untied += not tied
+    return flips, untied
+
+
 def keypoint_overlap(a, b) -> float:
     """The share of keypoint set ``b``'s ``(y, x)`` that ``a`` holds too;
     each a ``(y, x, valid)`` of ``(B, K)`` tensors or arrays."""
@@ -421,6 +457,28 @@ def import_survey() -> dict:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def decode_against_plain(lg: torch.Tensor, cell: int, t: float, what: str):
+    """The decode kernel on logits ``lg`` held to its plain version: the
+    kept mask may flip only where the probability lies within 1e-6 of
+    ``t``, and elsewhere they agree within 1e-6.  ``(kernel's map, max|diff|,
+    flips)``."""
+    from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
+    from feature_point_cnn_tpu_torch.ops.kernels.decode import (
+        decode_threshold_cuda, decode_threshold_plain)
+
+    with torch.inference_mode():
+        dec_k = decode_threshold_cuda(lg, cell, t)
+        dec_p = decode_threshold_plain(lg, cell, t)
+        prob = decode_prob_map(lg, cell)
+    torch.cuda.synchronize()
+    flip = (dec_k > 0) != (dec_p > 0)
+    check(bool(((prob[flip] - t).abs() <= 1e-6).all()),
+          f"{what}: mask flips only at |p-t|<=1e-6")
+    err = float((dec_k - dec_p).abs()[~flip].max())
+    check(err <= 1e-6, f"{what}: max|diff| {err} <= 1e-6")
+    return dec_k, err, int(flip.sum())
 
 
 def card_line() -> str:
@@ -1466,6 +1524,7 @@ PAR_ADAM_EPS = 1.0
 # over the two ranks at the serving point (480x320 a rank), and the large
 # point of its peak memory (bf16, B = 1)
 PAR_SPATIAL_HW = (H, W)
+PAR_SPATIAL_NARROW_HW = (H, 16)     # 8 px a shard over the two ranks
 PAR_SPATIAL_BIG_HW = (1920, 2560)
 PAR_SPATIAL_TIMED = 20
 PAR_SPATIAL_K = 256      # the top-K of the bf16 keypoint overlap
@@ -1523,13 +1582,30 @@ def spatial_image(seed: int, h: int, w: int, device) -> torch.Tensor:
     return (u8.float() / 255.0).expand(-1, -1, -1, 3).contiguous().to(device)
 
 
-def spatial_model(dtype: str, device):
+def spatial_frontend(dtype: str, device):
+    """The released model's frontend at ``dtype`` (the serving config)."""
     from feature_point_cnn_tpu_torch.config import SuperPointConfig
     from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
     from feature_point_cnn_tpu_torch.utils.weights import released_path
 
     return SuperPointFrontend(SuperPointConfig(compute_dtype=dtype),
-                              weights_path=released_path(), device=device).model
+                              weights_path=released_path(), device=device)
+
+
+def spatial_vgg(seed: int, device):
+    """A VGG SuperPoint, float32, its weights drawn from ``seed``."""
+    from feature_point_cnn_tpu_torch.models.vgg_superpoint import (
+        VGG_CONFIG, init_vgg_superpoint)
+
+    return init_vgg_superpoint(torch.Generator().manual_seed(seed),
+                               VGG_CONFIG.replace(compute_dtype="float32"), device=device).eval()
+
+
+def spatial_extract(fe, images, mesh=None) -> dict:
+    """`extract` (``mesh`` None) or `extract_spatial` of ``images``: the
+    keypoints' fields and the descriptors on the host."""
+    kp, desc = fe.extract(images) if mesh is None else fe.extract_spatial(images, mesh)
+    return {**{f: getattr(kp, f).cpu() for f in kp._fields}, "desc": desc.cpu()}
 
 
 def peak_mib(fn) -> float:
@@ -1544,49 +1620,94 @@ def peak_mib(fn) -> float:
 
 
 def spatial_rank(spec: dict, world: int) -> dict:
-    """Phase 13's W-sharded scenario on a gloo rank: the released model's
-    forward on this rank's block of one image (`shard_images_spatial` on a
-    width mesh of ``world`` ranks, under `width_group`), at float32 with
-    TF32 off and at bf16: the outputs gathered, the exchanges' counts, and
-    the wrappers' launches (none: the forward decodes with the plain
-    version).  On the card, bf16 ms a sharded forward (both ranks at once)
-    and peak MiB at the serving point and at the large one."""
+    """Phase 13's W-sharded scenario on a gloo rank, over a width mesh of
+    ``world`` ranks.  The forwards on this rank's block of one image
+    (`shard_images_spatial`, under `width_group`): the released model at
+    float32 with TF32 off and at bf16, the same at 8 px a shard (float32),
+    and a seeded VGG on the image's gray channel (float32), each with its
+    outputs gathered, the exchanges' counts and the wrappers' launches
+    (none: a forward decodes with the plain version).  Then
+    `extract_spatial` of the image at float32 and bf16: keypoints,
+    descriptors, what the exchanges and gathers carried, and the wrappers'
+    launches (decode on the block, NMS on the gathered map).  On the card,
+    both ranks at once: bf16 ms a sharded forward and peak MiB at the
+    serving point and at the large one; bf16 ms a sharded extract and a
+    score-map gather."""
     from feature_point_cnn_tpu_torch.parallel import spatial
     from feature_point_cnn_tpu_torch.parallel.mesh import (
         make_spatial_mesh,
         shard_images_spatial,
     )
 
-    dev, (h, w) = spec["device"], spec["spatial_hw"]
+    dev, (h, w), seed = spec["device"], spec["spatial_hw"], spec["seed"]
     t0 = time.perf_counter()
     smesh = make_spatial_mesh(world)
-    local = shard_images_spatial(spatial_image(spec["seed"], h, w, dev), smesh)
-    out = {}
+    image = spatial_image(seed, h, w, dev)
+    local = shard_images_spatial(image, smesh)
+    fes = {dtype: spatial_frontend(dtype, dev) for dtype in ("float32", "bfloat16")}
+    out, logits_blocks = {}, {}
     zero_kernel_counts()
 
     def sharded(model, x):
         with torch.inference_mode(), spatial.width_group(smesh.group):
             return model(x)
 
+    def forward(name, model, x):
+        spatial.reset_counts()
+        outs = sharded(model, x)
+        counts = dict(spatial.counts)
+        logits_blocks[name] = outs[2]
+        out[name] = {"gathered": [spatial.gather_width(t, 2, smesh.group).cpu()
+                                  for t in outs],
+                     "local_shapes": [list(t.shape) for t in outs], "counts": counts}
+
     for dtype in ("float32", "bfloat16"):
         _deterministic(dtype == "float32")
-        model = spatial_model(dtype, dev)
-        spatial.reset_counts()
-        outs = sharded(model, local)
-        counts = dict(spatial.counts)
-        out[dtype] = {"gathered": [spatial.gather_width(t, 2, smesh.group).cpu()
-                                   for t in outs],
-                      "local_shapes": [list(t.shape) for t in outs], "counts": counts}
+        forward(dtype, fes[dtype].model, local)
+    _deterministic(True)
+    nh, nw = spec["spatial_narrow_hw"]
+    forward("narrow", fes["float32"].model,
+            shard_images_spatial(spatial_image(seed, nh, nw, dev), smesh))
+    forward("vgg", spatial_vgg(seed, dev), shard_images_spatial(image[..., :1], smesh))
     if dev == "cuda":
+        _deterministic(False)
+        model = fes["bfloat16"].model
         torch.distributed.barrier()
         out["ms"] = host_median_ms(lambda: sharded(model, local), runs=spec["spatial_timed"])
         bh, bw = spec["spatial_big_hw"]
         big = torch.rand((1, bh, bw // world, 3), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(spec["seed"]))
+                         generator=torch.Generator(device=dev).manual_seed(seed))
         out["peak_mib"] = {"serving": peak_mib(lambda: sharded(model, local)),
                            "large": peak_mib(lambda: sharded(model, big))}
         del big
     out["launches"] = kernel_counts()
+
+    # extract_spatial: one decode and one NMS launch a call, counted apart
+    zero_kernel_counts()
+    out["extract"] = {}
+    for dtype in ("float32", "bfloat16"):
+        _deterministic(dtype == "float32")
+        spatial.reset_counts()
+        out["extract"][dtype] = spatial_extract(fes[dtype], image, smesh)
+        out["extract"][dtype]["counts"] = dict(spatial.counts)
+    out["extract_launches"] = kernel_counts()
+    if dev == "cuda":
+        # the decode kernel at the shape this path gives it, this rank's
+        # logits block, held to its plain version as phase 2 holds it
+        out["decode_block"] = {
+            dtype: [tuple(logits_blocks[dtype].shape), *decode_against_plain(
+                logits_blocks[dtype], fes[dtype].config.cell,
+                fes[dtype].config.confidence_thresh, f"decode {dtype} W-sharded block")[1:]]
+            for dtype in ("float32", "bfloat16")}
+        _deterministic(False)
+        fe = fes["bfloat16"]
+        block = torch.rand((1, h, w // world), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.distributed.barrier()
+        out["extract_ms"] = host_median_ms(lambda: fe.extract_spatial(image, smesh),
+                                           runs=spec["spatial_timed"])
+        out["gather_ms"] = host_median_ms(lambda: spatial.gather_width(block, 2, smesh.group),
+                                          runs=spec["spatial_timed"])
     out["s"] = time.perf_counter() - t0
     _deterministic(True)
     return out
@@ -1594,8 +1715,8 @@ def spatial_rank(spec: dict, world: int) -> dict:
 
 def spatial_one_rank(spec: dict) -> dict:
     """The NCCL rank's part: a width mesh of one rank gives the plain
-    forward bit for bit, and `spatial.halo` over NCCL pads a block with the
-    op's value bit for bit."""
+    forward and `extract` bit for bit (the extract's launches counted), and
+    `spatial.halo` over NCCL pads a block with the op's value bit for bit."""
     import math
 
     import torch.nn.functional as F
@@ -1610,7 +1731,8 @@ def spatial_one_rank(spec: dict) -> dict:
     _deterministic(True)
     smesh = make_spatial_mesh(1)
     images = spatial_image(spec["seed"], h, w, dev)
-    model = spatial_model("float32", dev)
+    fe = spatial_frontend("float32", dev)
+    model = fe.model
     x = torch.randn((1, 4, 6, 10), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(spec["seed"]))
     zero_kernel_counts()
@@ -1621,38 +1743,52 @@ def spatial_one_rank(spec: dict) -> dict:
             got = model(shard_images_spatial(images, smesh))
             forward_exchanges = spatial.counts["exchanges"]
             pads = (spatial.halo(x, 3, 2), spatial.halo(x, 1, 0, -math.inf))
-    return {"bit_equal": all(torch.equal(a, b) for a, b in zip(got, plain)),
-            "forward_exchanges": forward_exchanges,
-            "halo_exchanges": spatial.counts["exchanges"] - forward_exchanges,
-            "halo_equal": (torch.equal(pads[0], F.pad(x, (3, 2)))
-                           and torch.equal(pads[1], F.pad(x, (1, 0), value=-math.inf))),
-            "launches": kernel_counts()}
+    out = {"bit_equal": all(torch.equal(a, b) for a, b in zip(got, plain)),
+           "forward_exchanges": forward_exchanges,
+           "halo_exchanges": spatial.counts["exchanges"] - forward_exchanges,
+           "halo_equal": (torch.equal(pads[0], F.pad(x, (3, 2)))
+                          and torch.equal(pads[1], F.pad(x, (1, 0), value=-math.inf))),
+           "launches": kernel_counts()}
+    want = spatial_extract(fe, images)
+    zero_kernel_counts()
+    got = spatial_extract(fe, images, smesh)
+    out["extract_launches"] = kernel_counts()
+    out["extract_bit_equal"] = all(torch.equal(got[k], v) for k, v in want.items())
+    return out
 
 
 def spatial_reference(spec: dict) -> dict:
-    """This process's one-process forward of the W-sharded scenario's
-    image: float32 (TF32 off) outputs, the bf16 prob map and its top-K
-    keypoints; on the card bf16 ms a forward and peak MiB at the serving
-    and the large point."""
-    dev, (h, w) = spec["device"], spec["spatial_hw"]
-    images = spatial_image(spec["seed"], h, w, dev)
-    ref = {}
+    """This process's one-process runs of the W-sharded scenario: the
+    forward of the image at float32 (TF32 off; the bf16 prob map and its
+    top-K keypoints too), at 8 px a shard's width, and the seeded VGG's;
+    `extract` at float32 and bf16; on the card bf16 ms a forward and an
+    extract and peak MiB at the serving and the large point."""
+    dev, (h, w), seed = spec["device"], spec["spatial_hw"], spec["seed"]
+    nh, nw = spec["spatial_narrow_hw"]
+    image = spatial_image(seed, h, w, dev)
+    ref = {"extract": {}}
     for dtype in ("float32", "bfloat16"):
         _deterministic(dtype == "float32")
-        model = spatial_model(dtype, dev)
+        fe = spatial_frontend(dtype, dev)
         with torch.inference_mode():
-            ref[dtype] = [t.cpu() for t in model(images)]
+            ref[dtype] = [t.cpu() for t in fe.model(image)]
+            if dtype == "float32":
+                ref["narrow"] = [t.cpu() for t in fe.model(spatial_image(seed, nh, nw, dev))]
+                ref["vgg"] = [t.cpu() for t in spatial_vgg(seed, dev)(image[..., :1])]
+        ref["extract"][dtype] = spatial_extract(fe, image)
     ref["keypoints"] = spatial_keypoints(ref["bfloat16"][0], dev)
     if dev == "cuda":
+        model = fe.model
         bh, bw = spec["spatial_big_hw"]
         big = torch.rand((1, bh, bw, 3), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(spec["seed"]))
+                         generator=torch.Generator(device=dev).manual_seed(seed))
         with torch.inference_mode():
-            ref["ms"] = host_median_ms(lambda: model(images), runs=spec["spatial_timed"])
-            ref["peak_mib"] = {"serving": peak_mib(lambda: model(images)),
+            ref["ms"] = host_median_ms(lambda: model(image), runs=spec["spatial_timed"])
+            ref["peak_mib"] = {"serving": peak_mib(lambda: model(image)),
                                "large": peak_mib(lambda: model(big))}
-        del big
-    del model
+        ref["extract_ms"] = host_median_ms(lambda: fe.extract(image), runs=spec["spatial_timed"])
+        del big, model
+    del fe
     _deterministic(False)
     return ref
 
@@ -1876,57 +2012,148 @@ def _launch_ranks(role: str, world: int, work: Path) -> list:
     return [torch.load(work / f"{role}_{r}.pt", weights_only=False) for r in range(world)]
 
 
+def _max_err(a: list, b: list) -> dict:
+    return {k: float((x - y).abs().max()) for k, x, y in zip(("prob", "desc", "logits"), a, b)}
+
+
+def _forward_gates(what: str, err: dict, same: bool, counts: dict, exchanges: int,
+                   d: int, rows: int) -> None:
+    """The gates of a W-sharded forward; ``counts`` the exchanges' by dtype,
+    none larger than the strips of the widest halo, ``(d, 2, B, 64, rows,
+    1)``."""
+    check(err["prob"] <= 2e-4 and err["desc"] <= 1e-4 and err["logits"] <= 1e-4,
+          f"spatial {what}: the gathered forward equals one process's (prob 2e-4, "
+          "descriptors and logits 1e-4)")
+    check(same, f"spatial {what}: every rank gathers the same outputs bit for bit")
+    check(all(c["exchanges"] == exchanges and 0 < c["largest_bytes"]
+              <= d * 2 * 64 * rows * (4 if dtype == "float32" else 2)
+              for dtype, c in counts.items()),
+          f"spatial {what}: {exchanges} exchanges a forward, none larger than its "
+          "widest halo")
+
+
 def spatial_check(spec: dict, ref: dict, got: list, card: str) -> dict:
-    """Phase 13's W-sharded gates on the gloo ranks' outputs: float32
-    gathered = this process's forward (prob atol 2e-4, JAX's; logits and
-    descriptors 1e-4), the ranks' gathered outputs bit-identical, every
-    exchange halo-sized, no wrapper launched; the bf16 distance, keypoint
-    overlap and the cost printed."""
+    """Phase 13's W-sharded gates on the gloo ranks' outputs.  Forwards
+    (the image at float32, TF32 off; 8 px a shard; the VGG): gathered =
+    this process's forward (prob atol 2e-4, JAX's; logits and descriptors
+    1e-4), the ranks' gathered outputs bit-identical, every exchange
+    halo-sized, no wrapper launched.  `extract_spatial`: the ranks' outputs
+    bit-identical, one decode and one NMS launch a rank a call, and at
+    float32 >= 0.99 of this process's keypoints with descriptors within
+    1e-4 where both hold the keypoint (bf16: >= 0.9).  At float32 every
+    keypoint of either extract is in the other, but for flips that a tie
+    within the forward's prob tolerance (2e-4) explains (`untied_flips`).
+    The decode kernel on each rank's logits block agrees with its plain
+    version (`decode_against_plain`).  Printed: the bf16 forward's
+    distance and top-256 overlap, and the cost."""
     (h, w), d = spec["spatial_hw"], len(got)
-    err = {k: float((got[0]["float32"]["gathered"][i] - ref["float32"][i]).abs().max())
-           for i, k in enumerate(("prob", "desc", "logits"))}
-    same = all(torch.equal(a, b) for g in got[1:] for dtype in ("float32", "bfloat16")
-               for a, b in zip(g[dtype]["gathered"], got[0][dtype]["gathered"]))
+    nh, nw = spec["spatial_narrow_hw"]
+    err = _max_err(got[0]["float32"]["gathered"], ref["float32"])
+
+    def same(name):
+        return all(torch.equal(a, b) for g in got[1:]
+                   for a, b in zip(g[name]["gathered"], got[0][name]["gathered"]))
+
     counts = {dtype: got[0][dtype]["counts"] for dtype in ("float32", "bfloat16")}
-    # the largest buffer an exchange may carry: the max pool's (d, 2, B, 64,
-    # H/2, 1), its halo column from each side; its full-width input is W/2 wide
-    halo_cap = {dtype: d * 2 * 64 * (h // 2) * (4 if dtype == "float32" else 2)
-                for dtype in counts}
     full_pool_input = 64 * (h // 2) * (w // 2) * 4
     print(f"parallel spatial: one {h}x{w} image over {d} ranks sharing the card over gloo, "
           f"{got[0]['float32']['local_shapes']} a rank; float32 (TF32 off) gathered vs "
           f"this process's forward max|diff| prob {err['prob']:.3g}, desc {err['desc']:.3g}, "
-          f"logits {err['logits']:.3g}; ranks' gathered outputs bit-identical {same}; a "
-          f"forward's exchanges {counts['float32']} float32, {counts['bfloat16']} bf16 "
-          f"(the largest {counts['float32']['largest_bytes']} B against a full-width "
-          f"pool input of {full_pool_input} B); wrapper launches a rank "
-          f"{[g['launches'] for g in got]}; {[round(g['s'], 1) for g in got]} s a rank")
-    check(err["prob"] <= 2e-4 and err["desc"] <= 1e-4 and err["logits"] <= 1e-4,
-          "spatial float32: the gathered forward equals one process's (prob 2e-4, "
-          "descriptors and logits 1e-4)")
-    check(same, "spatial: every rank gathers the same outputs bit for bit")
-    check(all(c["exchanges"] == 13 and 0 < c["largest_bytes"] <= halo_cap[dtype]
-              for dtype, c in counts.items()),
-          "spatial: 13 exchanges a forward, none larger than the max pool's halo")
+          f"logits {err['logits']:.3g}; ranks' gathered outputs bit-identical "
+          f"{same('float32') and same('bfloat16')}; a forward's exchanges "
+          f"{counts['float32']} float32, {counts['bfloat16']} bf16 (the largest "
+          f"{counts['float32']['largest_bytes']} B against a full-width pool input of "
+          f"{full_pool_input} B); wrapper launches a rank {[g['launches'] for g in got]}; "
+          f"{[round(g['s'], 1) for g in got]} s a rank")
+    # the widest halo: the ResNet's max pool at H/2 rows, the VGG's second
+    # convolution at H
+    _forward_gates("float32", err, same("float32") and same("bfloat16"), counts, 13, d, h // 2)
     check(all(v == 0 for g in got for v in g["launches"].values()),
-          "spatial: the forward launches no wrapper")
+          "spatial: the forwards launch no wrapper")
+    narrow_err = _max_err(got[0]["narrow"]["gathered"], ref["narrow"])
+    vgg_err = _max_err(got[0]["vgg"]["gathered"], ref["vgg"])
+    print(f"parallel spatial at 8 px a shard ({nh}x{nw}, {got[0]['narrow']['local_shapes']} "
+          f"a rank), float32: max|diff| {narrow_err}, exchanges {got[0]['narrow']['counts']}; "
+          f"VGG {h}x{w} gray ({got[0]['vgg']['local_shapes']} a rank), float32: max|diff| "
+          f"{vgg_err}, exchanges {got[0]['vgg']['counts']}")
+    _forward_gates("8 px a shard", narrow_err, same("narrow"),
+                   {"float32": got[0]["narrow"]["counts"]}, 13, d, nh // 2)
+    _forward_gates("VGG", vgg_err, same("vgg"), {"float32": got[0]["vgg"]["counts"]}, 10, d, h)
+
     prob16 = got[0]["bfloat16"]["gathered"][0]
     dist16 = float((prob16 - ref["bfloat16"][0]).abs().max())
     overlap = keypoint_overlap(spatial_keypoints(prob16, spec["device"]), ref["keypoints"])
-    out = {"err_f32": err, "bit_identical": same, "counts": counts,
-           "bf16_prob_dist": dist16, "bf16_topk_overlap": overlap,
-           "s": [g["s"] for g in got]}
+    out = {"err_f32": err, "bit_identical": same("float32") and same("bfloat16"),
+           "counts": counts, "bf16_prob_dist": dist16, "bf16_topk_overlap": overlap,
+           "narrow_err": narrow_err, "vgg_err": vgg_err, "s": [g["s"] for g in got]}
     print(f"parallel spatial bf16: prob max|sharded - one process| {dist16:.4g}, top-"
           f"{PAR_SPATIAL_K} keypoint overlap {overlap:.4f}")
+
+    ext = {}
+    for dtype, floor in (("float32", 0.99), ("bfloat16", 0.9)):
+        mine, want = got[0]["extract"][dtype], ref["extract"][dtype]
+        shared = (mine["valid"] & want["valid"] & (mine["y"] == want["y"])
+                  & (mine["x"] == want["x"]))
+        ext[dtype] = {
+            "overlap": keypoint_overlap((mine["y"], mine["x"], mine["valid"]),
+                                        (want["y"], want["x"], want["valid"])),
+            "keypoints": [int(mine["valid"].sum()), int(want["valid"].sum())],
+            "desc_err": float((mine["desc"] - want["desc"])[shared].abs().max())
+                        if bool(shared.any()) else 0.0,
+            "ranks_equal": all(torch.equal(g["extract"][dtype][k], v)
+                               for g in got[1:] for k, v in mine.items() if k != "counts"),
+            "bytes": {k: mine["counts"][k] for k in ("bytes", "gather_bytes")}}
+        e = ext[dtype]
+        print(f"parallel extract_spatial {dtype}: keypoints {e['keypoints'][0]} (one process "
+              f"{e['keypoints'][1]}), overlap with this process's extract {e['overlap']:.4f}, "
+              f"descriptors max|diff| where both hold the keypoint {e['desc_err']:.3g}; ranks "
+              f"bit-identical {e['ranks_equal']}; {mine['counts']['exchanges']} exchanges "
+              f"({e['bytes']['bytes']} B) and {mine['counts']['gathers']} gathers "
+              f"({e['bytes']['gather_bytes']} B) a call")
+        check(e["ranks_equal"], f"extract_spatial {dtype}: every rank holds the same outputs")
+        check(e["overlap"] >= floor, f"extract_spatial {dtype}: >= {floor} of this process's "
+                                     "keypoints")
+        if dtype == "float32":
+            from feature_point_cnn_tpu_torch.config import SuperPointConfig
+
+            cfg = SuperPointConfig()
+            flips, untied = untied_flips(mine, want, cfg.confidence_thresh, cfg.nms_dist,
+                                         cfg.max_keypoints, 2e-4)
+            e["flips"] = [flips, untied]
+            print(f"parallel extract_spatial float32: {flips} keypoints in one extract "
+                  f"and not the other, {untied} of them not at a tie within 2e-4")
+            check(untied == 0, "extract_spatial float32: every keypoint of either extract "
+                               "in the other, but for ties within 2e-4")
+            check(e["desc_err"] <= 1e-4, "extract_spatial float32: descriptors within 1e-4 "
+                                         "of this process's where both hold the keypoint")
+    launches = [g["extract_launches"] for g in got]
+    print(f"parallel extract_spatial wrapper launches a rank for its 2 calls {launches}")
+    if spec["device"] == "cuda":
+        out["decode_block"] = [g["decode_block"] for g in got]
+        print(f"parallel extract_spatial: the decode kernel on each rank's logits block "
+              f"against its plain version, [shape, max|diff|, mask flips] by dtype a rank "
+              f"{out['decode_block']}")
+    if spec["device"] == "cuda":
+        check(all(n["decode_threshold"] == 2 and n["grid_nms"] == 2
+                  and n["descriptor_loss_fwd"] == n["descriptor_loss_bwd"] == 0
+                  for n in launches),
+              "extract_spatial: one decode and one NMS launch a rank a call")
+    out["extract"] = ext
     if spec["device"] == "cuda":
         out.update(ms=[g["ms"] for g in got], one_ms=ref["ms"],
-                   peak_mib=[g["peak_mib"] for g in got], one_peak_mib=ref["peak_mib"])
+                   peak_mib=[g["peak_mib"] for g in got], one_peak_mib=ref["peak_mib"],
+                   extract_ms=[g["extract_ms"] for g in got], one_extract_ms=ref["extract_ms"],
+                   gather_ms=[g["gather_ms"] for g in got])
         print(f"parallel spatial cost, TWO PROCESSES SHARING ONE CARD (the route, not "
               f"scaling): bf16 sharded forward {out['ms']} ms a rank against one process "
               f"{ref['ms']:.3f} ms; {counts['bfloat16']['exchanges']} exchanges, "
               f"{counts['bfloat16']['bytes']} B a forward; peak MiB a rank {out['peak_mib']} "
               f"against one process {ref['peak_mib']} (serving {h}x{w}, large "
               f"{spec['spatial_big_hw'][0]}x{spec['spatial_big_hw'][1]}, B = 1) [{card}]")
+        print(f"parallel extract_spatial cost, TWO PROCESSES SHARING ONE CARD (the route, not "
+              f"scaling): bf16 {out['extract_ms']} ms a call a rank against one process's "
+              f"extract {ref['extract_ms']:.3f} ms; a {h}x{w // d} float32 score-map gather "
+              f"{out['gather_ms']} ms; {ext['bfloat16']['bytes']} B a call [{card}]")
     return out
 
 
@@ -1952,6 +2179,7 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
             "ba": list(BA_MAP), "extract_hw": [H, W], "timed_steps": PAR_TIMED_STEPS,
             "k": TD_K, "homo_num": HomographyConfig.for_preprocess().num,
             "adam_eps": PAR_ADAM_EPS, "spatial_hw": list(PAR_SPATIAL_HW),
+            "spatial_narrow_hw": list(PAR_SPATIAL_NARROW_HW),
             "spatial_big_hw": list(PAR_SPATIAL_BIG_HW), "spatial_timed": PAR_SPATIAL_TIMED,
             **(spec_over or {})}
     dev, (th, tw), b = spec["device"], spec["hw"], spec["batch"]
@@ -2181,10 +2409,17 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
     one = nccl["spatial_one"]
     print(f"parallel spatial {nccl['backend']} rank: a width mesh of one rank gives the "
           f"plain forward bit for bit {one['bit_equal']} ({one['forward_exchanges']} "
-          f"exchanges); spatial.halo over {nccl['backend']} pads bit for bit "
+          f"exchanges) and extract bit for bit {one['extract_bit_equal']} (launches "
+          f"{one['extract_launches']}); spatial.halo over {nccl['backend']} pads bit for bit "
           f"{one['halo_equal']} ({one['halo_exchanges']} exchanges)")
     check(one["bit_equal"] and one["forward_exchanges"] == 0,
           "spatial: a width mesh of one rank is the plain forward bit for bit")
+    check(one["extract_bit_equal"], "extract_spatial on a width mesh of one rank is "
+                                    "extract bit for bit")
+    if on_card:
+        check(one["extract_launches"]["decode_threshold"] == 1
+              and one["extract_launches"]["grid_nms"] == 1,
+              "extract_spatial on a width mesh of one: one decode and one NMS launch")
     check(one["halo_equal"] and one["halo_exchanges"] == 2,
           "spatial: the halo exchange over NCCL pads bit for bit")
 
@@ -2197,8 +2432,9 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
                 for k in ranks[0]["launches"]}
     by_rank = {k: [r["launches"][k] for r in ranks] + [nccl["launches"][k]]
                for k in launches}
-    spatial_launches = {k: sum(r["spatial"]["launches"][k] for r in ranks)
-                        + one["launches"][k] for k in launches}
+    spatial_launches = {k: sum(r["spatial"]["launches"][k] + r["spatial"]["extract_launches"][k]
+                               for r in ranks)
+                        + one["launches"][k] + one["extract_launches"][k] for k in launches}
     shutil.rmtree(work)
     shutil.rmtree(sl_work)
     shutil.rmtree(packed.parent)
@@ -2617,17 +2853,7 @@ def main(argv=None) -> int:
                               .astype(np.float32)).cuda()
     dec_err, decoded = 0.0, {}
     for name, lg in (("b8", logits), ("b32", logits32), ("ragged", ragged)):
-        with torch.inference_mode():
-            dec_k = decode_threshold_cuda(lg, cfg.cell, t)
-            dec_p = decode_threshold_plain(lg, cfg.cell, t)
-            prob = decode_prob_map(lg, cfg.cell)
-        torch.cuda.synchronize()
-        flip = (dec_k > 0) != (dec_p > 0)
-        n_flip = int(flip.sum())
-        check(bool(((prob[flip] - t).abs() <= 1e-6).all()),
-              f"decode {name}: mask flips only at |p-t|<=1e-6")
-        err = float((dec_k - dec_p).abs()[~flip].max())
-        check(err <= 1e-6, f"decode {name}: max|diff| {err} <= 1e-6")
+        dec_k, err, n_flip = decode_against_plain(lg, cfg.cell, t, f"decode {name}")
         dec_err = max(dec_err, err)
         decoded[name] = dec_k
         print(f"decode: {name} logits {tuple(lg.shape)} max|diff| {err:.3g} "
@@ -3197,8 +3423,9 @@ def main(argv=None) -> int:
         # ranks, then the NCCL rank), each counted from 0 before its path
         r["launches_parallel"] = pa["launches"][r["name"]]
         r["launches_parallel_by_rank"] = pa["by_rank"][r["name"]]
-        # wrapper calls of phase 13's W-sharded forwards (both gloo ranks and
-        # the NCCL rank's width mesh of one): the forward decodes plainly
+        # wrapper calls of phase 13's W-sharded scenario (both gloo ranks and
+        # the NCCL rank's width mesh of one): the forwards decode plainly,
+        # each extract_spatial launches one decode and one NMS a rank
         r["launches_spatial"] = pa["launches_spatial"][r["name"]]
     print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 14. export and native serving -----------------------------------

@@ -14,7 +14,9 @@ directory of the port's checkpoints (`utils/checkpoint.py`); the JAX
 package's orbax directories need orbax, and with it JAX, so the port does
 not read them.  `SuperPointFrontend.extract_sharded` (`:139-175`) splits a
 batch over the ranks of a data mesh (`parallel/mesh.py`): each rank runs
-`extract_fn` on its rows and every rank gets the whole batch back.
+`extract_fn` on its rows and every rank gets the whole batch back;
+`SuperPointFrontend.extract_spatial` splits each image along W over a width
+mesh instead, which JAX's ``extract_fn`` does on a W-sharded input.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from feature_point_cnn_tpu_torch.ops.detection import (
 from feature_point_cnn_tpu_torch.ops.kernels import use_kernel
 from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
 from feature_point_cnn_tpu_torch.ops.matching import mnn_match
+from feature_point_cnn_tpu_torch.parallel import spatial
 from feature_point_cnn_tpu_torch.selflabel.adaptation import (
     Generators,
     homography_adaptation,
@@ -61,21 +64,29 @@ def extract_fn(
 
     With the decode kernel on, the thresholded map comes straight from the
     logits and the raw prob map is decoded only for subpixel refinement.
+    Under a width group ``images`` is this rank's block of columns, and
+    every rank returns the whole image's keypoints and descriptors, as JAX
+    computes them on a W-sharded input: the forward and the decode run on
+    the block (a cell's decode is its own); the score map, and for
+    refinement the raw prob map, are gathered whole by one exact sum each,
+    so every rank runs NMS, the border strip and top-K on the same map; the
+    descriptor map stays sharded (`sample_descriptors`).
     """
-    h, w = images.shape[1:3]
+    h, w = images.shape[1], images.shape[2] * spatial.split()[1]
     logits, desc_map = model.features(images)
     prob = None
     if use_kernel(config.use_cuda_decode, logits):
-        scores = decode_threshold_cuda(logits, config.cell, config.confidence_thresh)
+        scores = spatial.gather_width(
+            decode_threshold_cuda(logits, config.cell, config.confidence_thresh), 2)
         kp = extract_keypoints_from_scores(scores, config)
     else:
-        prob = decode_prob_map(logits, config.cell)
+        prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
         kp = extract_keypoints(prob, config)
     if config.subpixel_refine:
         # refine on the RAW prob map: the thresholded map zeroes
         # sub-threshold neighbours and would bias the fit
         if prob is None:
-            prob = decode_prob_map(logits, config.cell)
+            prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
         kp = refine_keypoints(prob, kp)
     return kp, sample_descriptors(desc_map, kp, h, w)
 
@@ -191,6 +202,23 @@ class SuperPointFrontend:
                               self.config)
         return (Keypoints(*(gather_rows(f, mesh.group) for f in kp)),
                 gather_rows(desc, mesh.group))
+
+    @torch.inference_mode()
+    def extract_spatial(self, images, mesh) -> Tuple[Keypoints, torch.Tensor]:
+        """`extract` of a ``(B, H, W, 3)`` batch whose images are split along
+        W over the width ``mesh`` (`parallel/mesh.py::make_spatial_mesh`):
+        each rank runs the forward and the decode on its ``W / d`` columns,
+        and every rank gets the whole batch's keypoints and descriptors back
+        (`extract_fn` under `spatial.width_group`).  Every rank passes the
+        same global batch, as in JAX.  On a mesh of one rank it is
+        `extract`."""
+        from feature_point_cnn_tpu_torch.parallel.mesh import shard_images_spatial
+
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
+        block = self._images(shard_images_spatial(images, mesh)).to(torch.float32)
+        with spatial.width_group(mesh.group):
+            return extract_fn(self.model, block, self.config)
 
     def run(self, img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """One ``(H, W, 3)`` image -> ``(points (3, N) [x, y, conf], desc

@@ -22,8 +22,9 @@ which is also what `running_var` takes (the unbiased variance rescaled by
 unbiased variance.
 
 Under a width group (`parallel/spatial.py`) the convolutions run
-W-sharded, exchanging their halos with the neighbouring ranks; BatchNorm in
-eval mode is per channel and needs nothing, and in train mode it raises.
+W-sharded, exchanging their halos with the ranks that hold them; BatchNorm
+in eval mode is per channel and needs nothing (an empty block stays
+empty), and in train mode it raises.
 
 ``fold_bn=True`` is the serving topology (`blocks.py:163-228` of the JAX
 package): every convolution carries a bias and every BatchNorm is an

@@ -23,8 +23,10 @@ Under ``parallel.spatial.width_group(g)`` the eval forward takes each
 rank's block of columns (`parallel/mesh.py::shard_images_spatial`) and
 returns that block of all three outputs: ``prob (B, H, W/d)``, ``desc (B,
 Hc, Wc/d, D)`` and ``logits (B, Hc, Wc/d, 65)``.  The convolutions and the
-max pool exchange their halos with the neighbouring ranks; gradients flow
-back through the exchanges.
+max pool exchange their halos with the ranks that hold them; gradients
+flow back through the exchanges.  At 8 px a shard the descriptor head's
+1/16 blocks of some ranks are empty, and those ranks' ops there return
+empty blocks.
 """
 
 from __future__ import annotations

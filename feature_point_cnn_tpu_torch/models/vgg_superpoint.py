@@ -10,6 +10,13 @@ JAX module's; `utils/weights.py` carries JAX variables across.  The public
 forward keeps the ResNet model's layouts: image ``(B, H, W, 1)`` in [0, 1]
 in, ``prob (B, H, W)``, ``desc (B, Hc, Wc, 256)``, ``logits (B, Hc, Wc,
 65)``, all float32, out.
+
+Under ``parallel.spatial.width_group(g)`` the forward takes each rank's
+block of columns (`parallel/mesh.py::shard_images_spatial`) and returns
+that block of all three outputs, as the ResNet model does: the 3x3
+convolutions exchange a column with the neighbouring ranks, and the 2x2
+pools, the 1x1 heads, the normalisation and the decode are local to a
+column.
 """
 
 from __future__ import annotations
@@ -62,16 +69,16 @@ class VGGSuperPoint(nn.Module):
                 m.bias.zero_()
 
     def forward(self, image: torch.Tensor):
-        if spatial.group() is not None:
-            raise ValueError("the W-sharded forward covers the ResNet SuperPoint, "
-                             "not the VGG family")
         x = image.permute(0, 3, 1, 2).to(self.compute_dtype)
         last = len(ENCODER_DIMS) - 1
         for i in range(len(ENCODER_DIMS)):
             x = torch.relu(getattr(self, f"encoder_conv{i}_a")(x))
             x = torch.relu(getattr(self, f"encoder_conv{i}_b")(x))
             if i != last:
-                x = nn.functional.max_pool2d(x, 2, 2)
+                if spatial.group() is not None:
+                    x = spatial.max_pool2d(x, 2, 2)
+                else:
+                    x = nn.functional.max_pool2d(x, 2, 2)
         point = torch.relu(self.detector_conv_a(x))
         logits = self.detector_conv_b(point).float().permute(0, 2, 3, 1)
         desc = torch.relu(self.descriptor_conv_a(x))

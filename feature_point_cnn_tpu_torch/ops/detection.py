@@ -24,7 +24,6 @@ from feature_point_cnn_tpu_torch.ops.kernels.nms import (
 # the NMS kernel's plain version is the port's grid_nms (with nms_iters)
 from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_plain as grid_nms
 from feature_point_cnn_tpu_torch.ops.labels import restore_prob_map
-from feature_point_cnn_tpu_torch.parallel import spatial
 
 __all__ = [
     "Keypoints", "softmax65", "decode_prob_map", "nms_priority_key",
@@ -44,6 +43,10 @@ class Keypoints(NamedTuple):
     @property
     def num(self) -> torch.Tensor:
         return self.valid.sum(-1)
+
+    def xys(self) -> torch.Tensor:
+        """``(B, K, 3)`` of ``(x, y, score)``, the reference's point layout."""
+        return torch.stack([self.x, self.y, self.score], dim=-1)
 
 
 def softmax65(logits: torch.Tensor) -> torch.Tensor:
@@ -78,10 +81,8 @@ def _top_k(x: torch.Tensor, k: int):
 def extract_keypoints_from_scores(
     scores: torch.Tensor, config: SuperPointConfig
 ) -> Keypoints:
-    """NMS + border strip + top-K on an already-thresholded score map."""
-    if spatial.group() is not None:
-        raise ValueError("keypoints of a W-sharded map are not ported: NMS to "
-                         "convergence is not local; gather the map first")
+    """NMS + border strip + top-K on an already-thresholded score map
+    (the whole map: a W-sharded extract gathers it first)."""
     b, h, w = scores.shape
     if use_kernel(config.use_cuda_nms, scores):
         scores = grid_nms_cuda(scores, config.nms_dist)

@@ -25,6 +25,10 @@ class Matches(NamedTuple):
     def num(self) -> torch.Tensor:
         return self.valid.sum(-1)
 
+    def l2_distance(self) -> torch.Tensor:
+        """The L2 distance of unit descriptors, ``sqrt(2 - 2 similarity)``."""
+        return torch.sqrt(torch.clamp(2.0 - 2.0 * self.similarity, min=0.0))
+
 
 def mnn_match(
     desc_a: torch.Tensor,

@@ -19,8 +19,9 @@ two ranks that share one card run over gloo.
 
 The data group is one of two: the width group of `parallel/spatial.py`,
 over which one image is split along W, is set by its own ``with
-width_group(g)`` and read only by the modules' convolutions and pools.
-Its exchanges keep to the same rule, ``all_reduce`` alone.
+width_group(g)`` and read only by the modules' convolutions and pools and
+by the W-sharded extract (`inference/wrapper.py`, `ops/descriptors.py`).
+Its exchanges and gathers keep to the same rule, ``all_reduce`` alone.
 """
 
 from __future__ import annotations

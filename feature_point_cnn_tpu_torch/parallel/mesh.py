@@ -20,7 +20,8 @@ cell boundaries fall on shard boundaries.  Where a width does not split,
 GSPMD quietly computes the image replicated; here the split raises instead.
 Run the model's forward on the block under
 ``parallel.spatial.width_group(mesh.group)``: its convolutions and pools
-then exchange their halos with the neighbouring ranks.
+then exchange their halos with the ranks that hold them.
+`SuperPointFrontend.extract_spatial` does so for a whole extract.
 """
 
 from __future__ import annotations

@@ -159,7 +159,16 @@ class Optimizer:
         bc1 = 1.0 - torch.pow(self._b1, t)
         bc2 = 1.0 - torch.pow(self._b2, t)
         denom = torch._foreach_mul(self.nu, 1.0 / bc2)
-        torch._foreach_sqrt_(denom)
+        if denom[0].is_cuda:
+            torch._foreach_sqrt_(denom)
+        else:
+            # on the CPU the root is 1 / rsqrt: the CPU's sqrt kernel calls
+            # MKL's vdSqrt, whose first call in a process, made by two
+            # threads at once under load, has returned one thread's half of
+            # a tensor 3e-11 off, so that two data-parallel ranks stepped one
+            # parameter apart (`probe_rank_split.py --record`)
+            torch._foreach_rsqrt_(denom)
+            torch._foreach_reciprocal_(denom)
         torch._foreach_add_(denom, cfg.adam_eps)
         upd = torch._foreach_mul(self.mu, 1.0 / bc1)
         torch._foreach_div_(upd, denom)

@@ -11,11 +11,12 @@ import torch
 
 from feature_point_cnn_tpu.ops import detection as JD
 from feature_point_cnn_tpu.ops.descriptors import sample_descriptors as jax_sample
+from feature_point_cnn_tpu.ops import matching as JM
 from feature_point_cnn_tpu.ops.matching import mnn_match as jax_mnn
 
 from feature_point_cnn_tpu_torch.ops.descriptors import sample_descriptors
 from feature_point_cnn_tpu_torch.ops.detection import Keypoints
-from feature_point_cnn_tpu_torch.ops.matching import mnn_match
+from feature_point_cnn_tpu_torch.ops.matching import Matches, mnn_match
 
 
 def _unit(rng, shape):
@@ -86,3 +87,18 @@ def test_mnn_match_without_cross_check_and_empty_sets(rng):
     assert bool(got.valid.all())
     np.testing.assert_allclose(got.similarity.numpy(),
                                np.asarray(want.similarity), atol=1e-5)
+
+
+def test_matches_l2_distance_matches_jax(rng):
+    """`Matches.l2_distance`: ``sqrt(max(2 - 2 similarity, 0))``, as JAX's,
+    with similarities past 1 (rounding) clamped to distance 0."""
+    a, b = _unit(rng, (3, 40, 16)), _unit(rng, (48, 16))
+    m = mnn_match(torch.from_numpy(a), torch.ones(3, 40, dtype=torch.bool),
+                  torch.from_numpy(b), torch.ones(48, dtype=torch.bool))
+    sim = torch.cat([m.similarity.reshape(-1), torch.tensor([1.0, 1.0 + 1e-6, -1.0])])
+    got = Matches(index=torch.zeros_like(sim, dtype=torch.int32), similarity=sim,
+                  valid=torch.ones_like(sim, dtype=torch.bool)).l2_distance()
+    want = JM.Matches(jnp.zeros(sim.shape, jnp.int32), jnp.asarray(sim.numpy()),
+                      jnp.ones(sim.shape, bool)).l2_distance()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    assert got[-3:].tolist() == [0.0, 0.0, 2.0]

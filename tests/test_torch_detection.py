@@ -131,3 +131,15 @@ def test_keypoints_to_numpy_layout():
         score=torch.tensor([[0.5, 0.0]]), valid=torch.tensor([[True, False]]))
     np.testing.assert_array_equal(D.keypoints_to_numpy(kp), [[5.0], [3.0], [0.5]])
     assert kp.num.tolist() == [1]
+
+
+def test_keypoints_xys_matches_jax(rng):
+    """`Keypoints.xys`: ``(B, K, 3)`` of ``(x, y, score)``, as JAX's."""
+    scores = _score_stacks(rng)["random"]
+    cfg = SuperPointConfig(max_keypoints=32)
+    got = D.extract_keypoints_from_scores(torch.from_numpy(scores), cfg)
+    want = JD.extract_keypoints_from_scores(
+        jnp.asarray(scores), JaxConfig(max_keypoints=32, use_pallas_nms="off"))
+    xys = got.xys()
+    assert xys.shape == (4, 32, 3) and xys.dtype == torch.float32
+    np.testing.assert_array_equal(xys.numpy(), np.asarray(want.xys()))
