@@ -133,7 +133,20 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    from this process's and the top-256 keypoint overlap, bf16 ms a
    sharded forward and peak MiB a rank at 480x640 and 1920x2560 against
    one process, bf16 ms a sharded extract against one process's extract,
-   ms a score-map gather, and the bytes a call carries.
+   ms a score-map gather, and the bytes a call carries.  W-sharded
+   training on the same two ranks: `superpoint_train_step` and
+   `magicpoint_train_step` (descriptor frozen) at 240x320 on 2 scenes,
+   `SuperPointConfig()`'s widths, seeded parameters, Adam's epsilon 1,
+   float32 with TF32 off, against this process's one-process step from the
+   same parameters, batch and generator: the loss and its parts rtol 1e-5,
+   the F1 within 1e-3, gradient norms rtol 1e-3, parameters atol 2e-6 +
+   rtol 1e-4, BatchNorm statistics atol 2e-5 + rtol 1e-4, the ranks'
+   parameters and statistics bit for bit, the descriptor-loss kernels
+   launched once forward and once backward a rank in the SuperPoint step
+   (one item each) and held to the plain version on the inputs the step
+   gave them; printed: the gathers' bytes a step, bf16 ms a step a rank
+   against one process and peak MiB a rank at 960x1280, B = 1, bf16,
+   against one process.
    One rank over NCCL: a joint step from fresh parameters on the global
    batch (loss rtol 1e-5 and gradients atol 1e-3 + rtol 1e-2 of this
    process's step; the parameters' difference is Adam's first update of
@@ -189,7 +202,8 @@ gloo rank 1, the NCCL rank), each counted from 0 before its path, and
 ``launches_spatial`` each wrapper's calls in phase 13's W-sharded scenario
 (the forwards decode with the plain version; each `extract_spatial` call
 launches one decode and one NMS a rank: two calls on each gloo rank, one
-on the NCCL rank's width mesh of one).
+on the NCCL rank's width mesh of one; the W-sharded SuperPoint step one
+descriptor-loss forward and backward a gloo rank).
 
 ``launches_native`` counts each wrapper's launches in phase 14's main path
 (the package's calls in this process; the host launches through its own
@@ -1528,6 +1542,12 @@ PAR_SPATIAL_NARROW_HW = (H, 16)     # 8 px a shard over the two ranks
 PAR_SPATIAL_BIG_HW = (1920, 2560)
 PAR_SPATIAL_TIMED = 20
 PAR_SPATIAL_K = 256      # the top-K of the bf16 keypoint overlap
+# W-sharded training: both steps at the training point (240x320) on the
+# first 2 scenes of the parallel steps' batch, and a step's peak memory at
+# the large point (bf16, B = 1)
+PAR_SPATIAL_TRAIN_B = 2
+PAR_SPATIAL_TRAIN_BIG_HW = (960, 1280)
+PAR_SPATIAL_TRAIN_TIMED = 10
 
 
 def _deterministic(on: bool) -> None:
@@ -1803,6 +1823,162 @@ def spatial_keypoints(prob: torch.Tensor, device):
     return kp.y.cpu(), kp.x.cpu(), kp.valid.cpu()
 
 
+def spatial_train_step(spec: dict, kind: str, dtype: str, batch: dict, smesh=None) -> dict:
+    """One `superpoint_train_step` (``kind`` ``"superpoint"``) or
+    `magicpoint_train_step` (descriptor frozen) from the seeded parameters
+    at `SuperPointConfig()`'s widths, ``adam_eps`` 1, on ``batch`` (whole,
+    on the host): W-sharded over ``smesh`` (this rank's block of the image,
+    under `width_group`) or, with ``smesh`` None, one process.  Returns
+    ``step`` (a call takes one more step), the metrics, the state after the
+    step on the host, the wrappers' launches in the step (counted from 0)
+    and what the width group's gathers carried."""
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+    from feature_point_cnn_tpu_torch.parallel import spatial
+    from feature_point_cnn_tpu_torch.parallel.mesh import shard_images_spatial
+    from feature_point_cnn_tpu_torch.train import steps as S
+    from feature_point_cnn_tpu_torch.train.optimizer import make_optimizer
+
+    dev = spec["device"]
+    cfg = SuperPointConfig(lr_schedule="constant", compute_dtype=dtype,
+                           train_image_size=tuple(batch["image"].shape[1:3]),
+                           batch_size=batch["image"].shape[0], adam_eps=1.0)
+    model = SuperPoint(cfg, generator=torch.Generator().manual_seed(spec["seed"] + 14),
+                       float32_params=True).to(dev, memory_format=torch.channels_last)
+    frozen = "descriptor" if kind == "magicpoint" else None
+    state = S.create_train_state(model, make_optimizer(cfg, model.named_parameters(),
+                                                       frozen_subtree=frozen))
+    local = {k: v.to(dev) for k, v in batch.items()}
+    if smesh is not None:
+        local["image"] = shard_images_spatial(local["image"], smesh)
+    fn = S.superpoint_train_step if kind == "superpoint" else S.magicpoint_train_step
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 141)
+
+    def step():
+        with spatial.width_group(None if smesh is None else smesh.group):
+            return fn(state, local, gen, config=cfg)[1]
+
+    zero_kernel_counts()
+    spatial.reset_counts()
+    m = step()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"step": step, "metrics": {k: float(v) for k, v in m.items()},
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "launches": kernel_counts(), "gathers": dict(spatial.counts)}
+
+
+def spatial_train_batch(spec: dict, batch: dict) -> dict:
+    """The W-sharded steps' batch: the first `PAR_SPATIAL_TRAIN_B` scenes of
+    the parallel steps' global batch at the training point."""
+    return {k: v[:spec["spatial_train_b"]] for k, v in batch.items()}
+
+
+def spatial_big_batch(spec: dict) -> dict:
+    """The peak-memory batch: one random image at `PAR_SPATIAL_TRAIN_BIG_HW`
+    with 32 points."""
+    bh, bw = spec["spatial_train_big_hw"]
+    g = torch.Generator().manual_seed(spec["seed"] + 142)
+    return {"image": torch.rand((1, bh, bw, 3), generator=g),
+            "points": torch.rand((1, 32, 2), generator=g) * torch.tensor([bh - 1.0, bw - 1.0]),
+            "points_valid": torch.ones((1, 32), dtype=torch.bool)}
+
+
+def spatial_train_rank(spec: dict, world: int, batch: dict) -> dict:
+    """Phase 13's W-sharded training on a gloo rank: `superpoint_train_step`
+    and `magicpoint_train_step` over the width mesh of ``world`` ranks at
+    float32 (TF32 off), their launches counted from 0 before each; the
+    descriptor-loss kernel on the inputs this rank's step gave it against
+    its plain version; on the card, bf16 ms a step and peak MiB at
+    `PAR_SPATIAL_TRAIN_BIG_HW`, B = 1."""
+    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
+        hinge_descriptor_loss_cuda, hinge_descriptor_loss_plain)
+    from feature_point_cnn_tpu_torch.parallel.mesh import make_spatial_mesh
+    from feature_point_cnn_tpu_torch.train import loss as L
+
+    t0 = time.perf_counter()
+    smesh = make_spatial_mesh(world)
+    small = spatial_train_batch(spec, batch)
+    _deterministic(True)
+    seen = []
+
+    def recording(*args):
+        seen.append([a.detach().clone() if torch.is_tensor(a) else a for a in args])
+        return hinge_descriptor_loss_cuda(*args)
+
+    L.hinge_descriptor_loss_cuda = recording
+    try:
+        out = {kind: spatial_train_step(spec, kind, "float32", small, smesh)
+               for kind in ("superpoint", "magicpoint")}
+    finally:
+        L.hinge_descriptor_loss_cuda = hinge_descriptor_loss_cuda
+    for r in out.values():
+        del r["step"]
+    out["loss_inputs"] = [tuple(a[0].shape) for a in seen]
+    if spec["device"] == "cuda" and seen:
+        # the kernels at the shape this path gives them, against the plain
+        # version, as phase 6 holds them
+        args = seen[0]
+
+        def value_and_grads(fn):
+            d = args[0].clone().requires_grad_(True)
+            wd = args[1].clone().requires_grad_(True)
+            v = fn(d, wd, *args[2:])
+            v.backward()
+            return v.detach(), d.grad, wd.grad
+
+        got, want = value_and_grads(hinge_descriptor_loss_cuda), \
+            value_and_grads(hinge_descriptor_loss_plain)
+        torch.cuda.synchronize()
+        gmax = max(float(w_.abs().max()) for w_ in want[1:])
+        out["kernel_check"] = {
+            "shape": tuple(args[0].shape),
+            "value": [float(got[0]), float(want[0])],
+            "value_ok": bool(torch.allclose(got[0], want[0], rtol=2e-5, atol=0.0)),
+            "grad_err": max(float((g - w_).abs().max()) for g, w_ in zip(got[1:], want[1:])),
+            "grad_max": gmax,
+            "grads_ok": all(bool(torch.allclose(g, w_, rtol=2e-4, atol=2e-6 * gmax))
+                            for g, w_ in zip(got[1:], want[1:]))}
+        _deterministic(False)
+        torch.distributed.barrier()
+        step16 = spatial_train_step(spec, "superpoint", "bfloat16", small, smesh)
+        torch.distributed.barrier()
+        out["ms"] = host_median_ms(step16["step"], runs=spec["spatial_train_timed"])
+        del step16
+        big = spatial_train_step(spec, "superpoint", "bfloat16", spatial_big_batch(spec),
+                                 smesh)
+        torch.distributed.barrier()
+        out["peak_mib"] = peak_mib(big["step"])
+        del big
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    _deterministic(True)
+    return out
+
+
+def spatial_train_reference(spec: dict, batch: dict) -> dict:
+    """This process's one-process steps of the W-sharded training: both at
+    float32 (TF32 off) from the same parameters, batch and generator; on
+    the card bf16 ms a step and peak MiB at `PAR_SPATIAL_TRAIN_BIG_HW`."""
+    small = spatial_train_batch(spec, batch)
+    _deterministic(True)
+    ref = {kind: spatial_train_step(spec, kind, "float32", small)
+           for kind in ("superpoint", "magicpoint")}
+    for r in ref.values():
+        del r["step"]
+    if spec["device"] == "cuda":
+        _deterministic(False)
+        step16 = spatial_train_step(spec, "superpoint", "bfloat16", small)
+        ref["ms"] = host_median_ms(step16["step"], runs=spec["spatial_train_timed"])
+        del step16
+        big = spatial_train_step(spec, "superpoint", "bfloat16", spatial_big_batch(spec))
+        ref["peak_mib"] = peak_mib(big["step"])
+        del big
+        torch.cuda.empty_cache()
+    _deterministic(False)
+    return ref
+
+
 def parallel_worker(role: str, rank: int, world: int, port: int, work: Path) -> int:
     """One rank of phase 13: ``role`` ``gloo`` (the two ranks sharing the
     card) or ``nccl`` (one rank, the graphed trainer).  Writes
@@ -1950,8 +2126,10 @@ def parallel_worker(role: str, rank: int, world: int, port: int, work: Path) -> 
     out["ba"] = {"poses": poses.cpu(), "points": points.cpu(), "costs": costs.cpu()}
     out["launches"] = launches
 
-    # 7. one image W-sharded over the two ranks (its launches apart)
+    # 7. one image W-sharded over the two ranks (its launches apart): the
+    # forward and extract, then both train steps
     out["spatial"] = spatial_rank(spec, world)
+    out["spatial_train"] = spatial_train_rank(spec, world, batch)
 
     # bf16 ms/step, both ranks at once on the one card
     _deterministic(False)
@@ -2157,6 +2335,93 @@ def spatial_check(spec: dict, ref: dict, got: list, card: str) -> dict:
     return out
 
 
+def spatial_train_check(spec: dict, ref: dict, got: list, card: str) -> dict:
+    """Phase 13's W-sharded training gates, each step at float32 (TF32 off)
+    against this process's one-process step from the same parameters,
+    batch and generator: the loss and its parts within rtol 1e-5, the F1
+    within 1e-3 (two of the 1,200 cells of a sample), each head's gradient
+    norm within rtol 1e-3, every parameter within atol 2e-6 + rtol 1e-4 and
+    every BatchNorm statistic within atol 2e-5 + rtol 1e-4; the ranks'
+    parameters and statistics bit for bit; the descriptor-loss kernels
+    launched once forward and once backward on each rank in the SuperPoint
+    step (none in the MagicPoint step), and on the card the kernel on the
+    inputs the step gave it within phase 6's tolerances of its plain
+    version.  Printed: the gathers' bytes a step (the descriptor maps'
+    share), bf16 ms a step a rank and peak MiB a rank at the large point
+    against one process."""
+    d = len(got)
+    out = {}
+    for kind in ("superpoint", "magicpoint"):
+        want, mine = ref[kind], got[0][kind]
+        errs = {}
+        for k, v in want["metrics"].items():
+            errs[k] = abs(mine["metrics"][k] - v) / (1.0 if k == "f1" else max(abs(v), 1e-30))
+        state_ratio, stat_ratio = 0.0, 0.0
+        for k, v in want["state"].items():
+            if not v.is_floating_point():
+                continue
+            diff = (mine["state"][k].double() - v.double()).abs()
+            if "running" in k:
+                stat_ratio = max(stat_ratio, float((diff / (2e-5 + 1e-4 * v.double().abs())).max()))
+            else:
+                state_ratio = max(state_ratio, float((diff / (2e-6 + 1e-4 * v.double().abs())).max()))
+        same = all(torch.equal(v, g[kind]["state"][k]) for g in got[1:]
+                   for k, v in mine["state"].items())
+        launches = [(g[kind]["launches"]["descriptor_loss_fwd"],
+                     g[kind]["launches"]["descriptor_loss_bwd"]) for g in got]
+        out[kind] = {"errs": errs, "param_ratio": state_ratio, "stat_ratio": stat_ratio,
+                     "bit_identical": same, "launches": launches,
+                     "gather_bytes": mine["gathers"]["gather_bytes"],
+                     "gathers": mine["gathers"]["gathers"]}
+        print(f"parallel spatial train {kind}: {d} ranks, the {spec['hw'][0]}x{spec['hw'][1]} "
+              f"batch of {spec['spatial_train_b']} W-sharded, float32 (TF32 off), against one "
+              f"process: metrics' relative differences {errs} (f1 absolute); parameters "
+              f"{state_ratio:.3g} and statistics {stat_ratio:.3g} of their tolerances; ranks "
+              f"bit-identical {same}; descriptor-loss launches (forward, backward) a rank "
+              f"{launches}; {mine['gathers']['gathers']} gathers, "
+              f"{mine['gathers']['gather_bytes']} B a step")
+        loss_keys = [k for k in want["metrics"] if "loss" in k]
+        norm_keys = [k for k in want["metrics"] if k.startswith("grad_norm")]
+        check(all(errs[k] <= 1e-5 for k in loss_keys),
+              f"spatial train {kind}: the loss and its parts within rtol 1e-5 of one process")
+        check(errs["f1"] <= 1e-3, f"spatial train {kind}: f1 within 1e-3 of one process")
+        check(all(errs[k] <= 1e-3 for k in norm_keys),
+              f"spatial train {kind}: gradient norms within rtol 1e-3 of one process")
+        check(state_ratio <= 1.0, f"spatial train {kind}: parameters within atol 2e-6 + "
+                                  "rtol 1e-4 of one process")
+        check(stat_ratio <= 1.0, f"spatial train {kind}: BatchNorm statistics within atol "
+                                 "2e-5 + rtol 1e-4 of one process")
+        check(same, f"spatial train {kind}: the ranks' parameters and statistics bit for bit")
+        if spec["device"] == "cuda":
+            want_launches = (1, 1) if kind == "superpoint" else (0, 0)
+            check(all(n == want_launches for n in launches),
+                  f"spatial train {kind}: descriptor-loss launches {want_launches} a rank")
+    b, (h, w) = spec["spatial_train_b"], spec["hw"]
+    desc_bytes = 2 * b * (h // 8) * (w // 8) * 128 * 4
+    print(f"parallel spatial train: the descriptor loss's inputs a rank "
+          f"{[g['loss_inputs'] for g in got]}; the two float32 descriptor maps gathered "
+          f"whole {desc_bytes} B a step forward and their gradients as much backward, of "
+          f"the step's {out['superpoint']['gather_bytes']} B of gathers; at B = 32 the maps "
+          f"would be {desc_bytes * 32 // b} B")
+    if spec["device"] == "cuda":
+        kc = [g["kernel_check"] for g in got]
+        print(f"parallel spatial train: the descriptor-loss kernels on each rank's inputs "
+              f"against the plain version {kc}")
+        check(all(k["value_ok"] and k["grads_ok"] for k in kc),
+              "spatial train: the descriptor-loss kernels on the path's inputs equal the "
+              "plain version (value rtol 2e-5, gradients rtol 2e-4 + atol 2e-6 of the "
+              "largest)")
+        out.update(kernel_check=kc, ms=[g["ms"] for g in got], one_ms=ref["ms"],
+                   peak_mib=[g["peak_mib"] for g in got], one_peak_mib=ref["peak_mib"],
+                   desc_bytes=desc_bytes)
+        bh, bw = spec["spatial_train_big_hw"]
+        print(f"parallel spatial train cost, TWO PROCESSES SHARING ONE CARD (the route, not "
+              f"scaling): bf16 superpoint_train_step of {b} at {h}x{w} {out['ms']} ms a rank "
+              f"against one process {ref['ms']:.3f} ms; peak MiB a rank at {bh}x{bw}, B = 1, "
+              f"bf16 {out['peak_mib']} against one process {ref['peak_mib']:.1f} [{card}]")
+    return out
+
+
 def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
                    spec_over: dict = None) -> dict:
     """Phase 13: the parallel layer.  Two ranks on the one card over gloo
@@ -2181,6 +2446,9 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
             "adam_eps": PAR_ADAM_EPS, "spatial_hw": list(PAR_SPATIAL_HW),
             "spatial_narrow_hw": list(PAR_SPATIAL_NARROW_HW),
             "spatial_big_hw": list(PAR_SPATIAL_BIG_HW), "spatial_timed": PAR_SPATIAL_TIMED,
+            "spatial_train_b": PAR_SPATIAL_TRAIN_B,
+            "spatial_train_big_hw": list(PAR_SPATIAL_TRAIN_BIG_HW),
+            "spatial_train_timed": PAR_SPATIAL_TRAIN_TIMED,
             **(spec_over or {})}
     dev, (th, tw), b = spec["device"], spec["hw"], spec["batch"]
     (work / "spec.json").write_text(json.dumps(spec))
@@ -2203,6 +2471,7 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
                                          device=dev)
     ba_ref = bundle_adjust(problem, iters=10)
     sref = spatial_reference(spec)
+    tref = spatial_train_reference(spec, batch)
     _deterministic(False)
     cfg = cfg32.replace(compute_dtype="bfloat16")
     one_ms = None
@@ -2314,6 +2583,7 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
           "sharded BA within rtol 1e-5 (costs) and 1e-4 (poses, points) of one rank")
 
     sp = spatial_check(spec, sref, [r["spatial"] for r in ranks], card)
+    sp["train"] = spatial_train_check(spec, tref, [r["spatial_train"] for r in ranks], card)
 
     # ---- one rank over NCCL: the graphed trainer ---------------------------
     # the reference: this process's k = 4 graphed epoch at the NCCL rank's
@@ -2433,6 +2703,8 @@ def parallel_phase(seed: int, card: str, sl_work: Path, packed: Path,
     by_rank = {k: [r["launches"][k] for r in ranks] + [nccl["launches"][k]]
                for k in launches}
     spatial_launches = {k: sum(r["spatial"]["launches"][k] + r["spatial"]["extract_launches"][k]
+                               + r["spatial_train"]["superpoint"]["launches"][k]
+                               + r["spatial_train"]["magicpoint"]["launches"][k]
                                for r in ranks)
                         + one["launches"][k] + one["extract_launches"][k] for k in launches}
     shutil.rmtree(work)
@@ -3425,7 +3697,8 @@ def main(argv=None) -> int:
         r["launches_parallel_by_rank"] = pa["by_rank"][r["name"]]
         # wrapper calls of phase 13's W-sharded scenario (both gloo ranks and
         # the NCCL rank's width mesh of one): the forwards decode plainly,
-        # each extract_spatial launches one decode and one NMS a rank
+        # each extract_spatial launches one decode and one NMS a rank, the
+        # W-sharded SuperPoint step one descriptor-loss forward and backward
         r["launches_spatial"] = pa["launches_spatial"][r["name"]]
     print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 14. export and native serving -----------------------------------

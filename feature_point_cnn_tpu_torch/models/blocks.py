@@ -24,7 +24,11 @@ unbiased variance.
 Under a width group (`parallel/spatial.py`) the convolutions run
 W-sharded, exchanging their halos with the ranks that hold them; BatchNorm
 in eval mode is per channel and needs nothing (an empty block stays
-empty), and in train mode it raises.
+empty), and in train mode takes the whole image's statistics by the same
+`_GroupBatchNorm` over the width group (`collectives.group` returns it
+there): a rank's block, empty ones included, adds its count and sums to
+the forward's all-reduce and its sums of ``dy`` and ``dy xhat`` to the
+backward's.  A data group set inside a width group raises.
 
 ``fold_bn=True`` is the serving topology (`blocks.py:163-228` of the JAX
 package): every convolution carries a bias and every BatchNorm is an
@@ -82,11 +86,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             if x.is_cuda and torch.compiler.is_exporting():
                 return self._exported_eval(x)
             return super().forward(x)
-        if spatial.group() is not None:
-            raise ValueError("train-mode BatchNorm over a W-sharded image is not "
-                             "ported: its statistics would be this rank's block's")
-        if collectives.group() is not None:
-            return self._group_forward(x)
+        g = collectives.group()
+        if g is not None:
+            return self._group_forward(x, g)
         # one statistics pass: with momentum 1 `F.batch_norm` leaves the batch
         # mean and the unbiased batch variance in the two scratch buffers
         n = x.numel() // x.shape[1]
@@ -117,9 +119,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                           torch.rsqrt(self.running_var + self.eps).view(c))
         return y.to(x.dtype)
 
-    def _group_forward(self, x: torch.Tensor) -> torch.Tensor:
-        y, mean, var = _GroupBatchNorm.apply(x, self.weight, self.bias, self.eps,
-                                             collectives.group())
+    def _group_forward(self, x: torch.Tensor, g) -> torch.Tensor:
+        y, mean, var = _GroupBatchNorm.apply(x, self.weight, self.bias, self.eps, g)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
@@ -128,7 +129,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class _GroupBatchNorm(torch.autograd.Function):
-    """Train-mode BatchNorm over the group's global batch, ``(N, C, H, W)``.
+    """Train-mode BatchNorm over the group's global batch, ``(N, C, H, W)``
+    (a data group's rows, or a width group's blocks of columns).
 
     Forward: ONE all-reduce of the per-channel count, sum and sum of
     squares (accumulated in float64, so ``E[x^2] - E[x]^2`` does not lose

@@ -19,7 +19,8 @@ the JAX package): convolutions with a bias, no BatchNorm; load it with
 `models/fold.py::fold_batchnorm` of a live-BN ``state_dict``.  It cannot
 train.
 
-Under ``parallel.spatial.width_group(g)`` the eval forward takes each
+Under ``parallel.spatial.width_group(g)`` the forward (eval, or train
+mode, whose BatchNorm takes the whole image's statistics) takes each
 rank's block of columns (`parallel/mesh.py::shard_images_spatial`) and
 returns that block of all three outputs: ``prob (B, H, W/d)``, ``desc (B,
 Hc, Wc/d, D)`` and ``logits (B, Hc, Wc/d, 65)``.  The convolutions and the

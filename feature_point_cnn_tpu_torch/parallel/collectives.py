@@ -17,11 +17,14 @@ module calls ``all_reduce``, and ``broadcast`` to replicate state, and
 nothing else: gloo carries CUDA tensors for those two collectives only, and
 two ranks that share one card run over gloo.
 
-The data group is one of two: the width group of `parallel/spatial.py`,
-over which one image is split along W, is set by its own ``with
-width_group(g)`` and read only by the modules' convolutions and pools and
-by the W-sharded extract (`inference/wrapper.py`, `ops/descriptors.py`).
-Its exchanges and gathers keep to the same rule, ``all_reduce`` alone.
+The data group is one of two.  Inside ``with spatial.width_group(g)``
+(`parallel/spatial.py`) every rank holds a block of columns of every image
+and the whole batch, so there the batch's sums run over the width group
+instead: `group` returns it, and `shard` says that this rank holds every
+row.  The same modules then compute JAX's step on a W-sharded batch.  The
+JAX package's meshes have one axis, data or width, so a data group set by
+``data_group`` inside a width group raises.  The width group's exchanges and
+gathers keep to the same rule, ``all_reduce`` alone.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from typing import Iterable, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from feature_point_cnn_tpu_torch.parallel import spatial
 
 _DATA_GROUP: Optional[dist.ProcessGroup] = None
 
@@ -48,7 +53,16 @@ def data_group(g: Optional[dist.ProcessGroup]) -> Iterator[None]:
 
 
 def group() -> Optional[dist.ProcessGroup]:
-    """The data group, or ``None`` when no process group is initialized."""
+    """The group the batch's sums run over: the width group inside one,
+    else the data group, ``None`` when no process group is initialized.
+    Raises where a data group was set inside a width group."""
+    w = spatial.group()
+    if w is not None:
+        if _DATA_GROUP is not None:
+            raise ValueError("a data group inside a width group: the JAX package's "
+                             "meshes have one axis, data or width, so a data x width "
+                             "mesh is not ported")
+        return w
     if not (dist.is_available() and dist.is_initialized()):
         return None
     return _DATA_GROUP if _DATA_GROUP is not None else dist.group.WORLD
@@ -56,10 +70,11 @@ def group() -> Optional[dist.ProcessGroup]:
 
 def shard() -> Tuple[int, int]:
     """``(index, count)`` of this rank in the data group; ``(0, 1)`` with no
-    group.  A batch of ``b`` rows a rank holds rows ``[index * b, (index +
-    1) * b)`` of the global batch of ``count * b`` rows."""
+    group and inside a width group, whose ranks each hold the whole batch.
+    A batch of ``b`` rows a rank holds rows ``[index * b, (index + 1) * b)``
+    of the global batch of ``count * b`` rows."""
     g = group()
-    if g is None:
+    if g is None or spatial.group() is not None:
         return 0, 1
     return dist.get_rank(g), dist.get_world_size(g)
 
@@ -83,7 +98,7 @@ class _AllSum(torch.autograd.Function):
 
 
 def all_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the data group, differentiable."""
+    """The sum of ``x`` over `group`, differentiable."""
     g = group()
     return x if g is None else _AllSum.apply(x, g)
 
@@ -91,9 +106,8 @@ def all_sum(x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def all_sum_(x: torch.Tensor, g: Optional[dist.ProcessGroup] = None
              ) -> torch.Tensor:
-    """The sum of ``x`` over group ``g`` (``None``: the data group), out of
-    place and without a gradient (divisors, metrics, the gradient
-    itself)."""
+    """The sum of ``x`` over group ``g`` (``None``: `group`), out of place
+    and without a gradient (divisors, metrics, the gradient itself)."""
     g = g if g is not None else group()
     if g is None:
         return x

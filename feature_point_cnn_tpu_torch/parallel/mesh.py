@@ -21,7 +21,8 @@ GSPMD quietly computes the image replicated; here the split raises instead.
 Run the model's forward on the block under
 ``parallel.spatial.width_group(mesh.group)``: its convolutions and pools
 then exchange their halos with the ranks that hold them.
-`SuperPointFrontend.extract_spatial` does so for a whole extract.
+`SuperPointFrontend.extract_spatial` does so for a whole extract, and the
+steps of `train/steps.py` for a train or eval step.
 """
 
 from __future__ import annotations

@@ -59,6 +59,13 @@ device value back to the host.
 
 A group of one rank holds the whole width, so there the ops are the plain
 ones.
+
+**Whole tensors.**  `gather_width` assembles every rank's block by one
+exact sum, and its backward returns each rank its columns of the summed
+gradient: the train steps gather the image for its augmentation and the
+descriptor maps for the descriptor loss (`train/steps.py`,
+`train/loss.py`), and `own_block` takes a rank's columns of a whole
+tensor.
 """
 
 from __future__ import annotations
@@ -87,7 +94,7 @@ _WIDTH: Optional[Width] = None
 
 # what the exchanges and gathers carried since `reset_counts`: exchanges
 # (forward and backward), bytes all-reduced and the largest buffer in bytes;
-# gathers (`gather_width`, `sum_blocks`) and their bytes
+# gathers (`gather_width` forward and backward, `sum_blocks`) and their bytes
 counts = {"exchanges": 0, "bytes": 0, "largest_bytes": 0, "gathers": 0,
           "gather_bytes": 0}
 
@@ -469,25 +476,55 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
 # ---------------------------------------------------------------------------
 # whole tensors from blocks
 
-def gather_width(x: torch.Tensor, dim: int,
-                 g: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
-    """Every rank's equal block of ``x`` along ``dim``, in rank order, on
-    every rank of ``g`` (``None``: the width group): a zero global buffer
-    into which each rank writes its block, summed over the group.  Exact,
-    since ``x + 0 = x``.  ``x`` itself outside a width group or in a group
-    of one rank."""
-    g = g if g is not None else group()
-    if g is None or dist.get_world_size(g) == 1:
-        return x
-    rank, size = dist.get_rank(g), dist.get_world_size(g)
-    n = x.shape[dim]
-    shape = list(x.shape)
-    shape[dim] = size * n
-    with torch.no_grad():
+class _GatherWidth(torch.autograd.Function):
+    """Every rank's equal block of ``x`` along ``dim`` in rank order: a zero
+    global buffer into which this rank writes its block, summed over the
+    group.  Backward, the adjoint of that all-gather: one all-reduce of the
+    gathered tensor's gradient (every rank's use of every block), then this
+    rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g, rank, size):
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = size * n
         buf = x.new_zeros(shape)
         buf.narrow(dim, rank * n, n).copy_(x)
         _gather(buf, g)
-    return buf
+        ctx.geometry = (dim, g, rank, n)
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, g, rank, n = ctx.geometry
+        total = grad.clone(memory_format=torch.contiguous_format)
+        _gather(total, g)
+        return total.narrow(dim, rank * n, n), None, None, None, None
+
+
+def gather_width(x: torch.Tensor, dim: int,
+                 g: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Every rank's equal block of ``x`` along ``dim``, in rank order, on
+    every rank of ``g`` (``None``: the width group), differentiable: the
+    forward is exact, since ``x + 0 = x``, and so is the backward where each
+    entry's gradient comes from one rank (the descriptor loss's items).
+    ``x`` itself outside a width group or in a group of one rank."""
+    g = g if g is not None else group()
+    if g is None or dist.get_world_size(g) == 1:
+        return x
+    return _GatherWidth.apply(x, dim, g, dist.get_rank(g), dist.get_world_size(g))
+
+
+def own_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's equal block along ``dim`` of a whole-width tensor, as a
+    compact copy; ``x`` itself outside a width group."""
+    rank, size = split()
+    if size == 1:
+        return x
+    if x.shape[dim] % size:
+        raise ValueError(f"{x.shape[dim]} columns do not split into {size} equal blocks")
+    n = x.shape[dim] // size
+    return x.narrow(dim, rank * n, n).contiguous()
 
 
 @torch.no_grad()

@@ -14,6 +14,20 @@ mean: the numerator over the local rows, the divisor counted over the whole
 global batch (one all-reduce of the count where it depends on the data).
 The shares of all ranks sum to the one-process loss on the global batch,
 and so do their gradients.
+
+Under a width group (`parallel/spatial.py`) each rank holds a block of
+cell columns of every item, and the same sums run over the width group
+(`collectives.group`).  A detector loss's share is the rank's cells, the
+divisor counted over the width group.  A descriptor loss pairs every cell
+of an item with every warped cell, and the hinge normalises over whole
+rows and columns of those pairs, so a block of cells cannot compute its
+share: `global_loss` gathers both views' descriptor maps whole (one exact
+sum each, whose backward returns each rank its columns of the gradient)
+and gives rank ``r`` of ``d`` the items ``r, r + d, ...``, as a data group
+gives each rank its rows.  Every item's N x N work then runs on one rank,
+through the kernels on the card; a rank left with no items (a batch
+smaller than ``d``) still takes part in every sum, and its zero share
+keeps its gathers in the backward.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
     hinge_descriptor_loss_cuda,
     hinge_descriptor_loss_plain,
 )
+from feature_point_cnn_tpu_torch.parallel import spatial
 from feature_point_cnn_tpu_torch.parallel.collectives import all_sum_, group, shard
 
 
@@ -39,7 +54,11 @@ def _masked_mean(losses: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Te
     if mask is None:
         if group() is None:
             return losses.mean()
-        # the ranks' shards are equal, so the global count is a product
+        if spatial.group() is not None:
+            # a width group's blocks of cells, counted
+            count = constant((float(losses.numel()),), losses.device)
+            return losses.sum() / all_sum_(count)[0]
+        # the data ranks' shards are equal, so the global count is a product
         return losses.sum() / float(losses.numel() * shard()[1])
     mask = mask.to(losses.dtype)
     return (losses * mask).sum() / all_sum_(mask.sum()).clamp_min(1.0)
@@ -136,6 +155,8 @@ def descriptor_loss(
     mask = _cell_mask(valid_mask, b, n, desc.device)
     normalization = (all_sum_(mask.sum()) * float(n)).clamp_min(1.0)
 
+    if b == 0:      # a width rank with no items: the kernels refuse B = 0
+        return (d.sum() + wd.sum()) * 0.0
     fn = (hinge_descriptor_loss_cuda
           if use_kernel(config.use_cuda_desc_loss, d)
           else hinge_descriptor_loss_plain)
@@ -210,11 +231,23 @@ def descriptor_mse_loss(
     cx = cell_idx[..., 1].clamp(0, wc - 1)
     flat_idx = cy * wc + cx                                    # (B, N)
 
-    d = desc.reshape(b, -1, dd).to(torch.float32)
-    wd = warped_desc.reshape(b, -1, dd).to(torch.float32)
+    d = desc.reshape(b, hc * wc, dd).to(torch.float32)
+    wd = warped_desc.reshape(b, hc * wc, dd).to(torch.float32)
     wd_at = wd.gather(1, flat_idx[..., None].expand(-1, -1, dd))
     sq = ((d - wd_at) ** 2).sum(dim=-1) * inlier
     return sq.sum() / (all_sum_(inlier.sum().to(torch.float32)) * dd).clamp_min(1.0)
+
+
+def _own_items(desc, warped_desc, homographies, valid_mask):
+    """Under a width group: both views' descriptor maps and the mask
+    gathered whole along Wc, and of them and of the homographies this
+    rank's items ``r, r + d, ...``."""
+    rank, size = spatial.split()
+    mine = slice(rank, None, size)
+    if valid_mask is not None:
+        valid_mask = spatial.gather_width(valid_mask, 2)[mine]
+    return (spatial.gather_width(desc, 2)[mine],
+            spatial.gather_width(warped_desc, 2)[mine], homographies[mine], valid_mask)
 
 
 def global_loss(
@@ -229,11 +262,16 @@ def global_loss(
     config: SuperPointConfig,
 ) -> Dict[str, torch.Tensor]:
     """Joint SuperPoint loss (`loss.py:314-344`): detector on the normal
-    view (unmasked), detector on the warped view (masked), descriptor."""
+    view (unmasked), detector on the warped view (masked), descriptor.
+    Under a width group every ``(B, Hc, Wc, ...)`` argument is this rank's
+    block of cell columns and ``homographies`` is whole."""
     det = detector_loss(logits, targets, None, config.cell, config.detector_loss)
     warped_det = detector_loss(
         warped_logits, warped_targets, valid_mask, config.cell, config.detector_loss
     )
+    if spatial.group() is not None:
+        desc, warped_desc, homographies, valid_mask = _own_items(
+            desc, warped_desc, homographies, valid_mask)
     if config.descriptor_loss == "mse":
         desc_l = descriptor_mse_loss(desc, warped_desc, homographies, config)
     elif config.descriptor_loss == "hinge_hn":

@@ -27,6 +27,22 @@ rank applies the same update and the parameters stay bit-identical; the
 metrics are group-wide.  Microbatch ``i`` of the global batch (items ``i,
 i + k, ...``) is the union of the ranks' local microbatches ``i`` only when
 each rank's row count divides by k, so the step raises otherwise.
+
+Width sharding (`parallel/spatial.py`): inside ``with
+spatial.width_group(mesh.group)`` the d ranks compute JAX's step on a
+W-sharded batch.  ``batch["image"]`` is this rank's block of columns
+(`mesh.shard_images_spatial`); ``points`` and ``points_valid`` are whole.
+Where a step augments or labels, it gathers the prepared image whole once
+(exact), makes every draw for the whole image in the one-process order,
+builds the labels, the cell mask and the warped view whole, and keeps its
+own columns (`superpoint_train_step_encoded` takes whole-width data and
+keeps its columns), so the model's input blocks and targets are the
+one-process step's columns bit for bit.  Train-mode BatchNorm, the loss
+divisors, the gradient sum and the metrics then run over the width group
+(`collectives.group` returns it); the descriptor loss splits the items
+over the ranks (`train/loss.py`); the F1 is each sample's correct cells
+over its whole image.  Every rank holds the whole batch, so microbatch
+``i`` is the same items on every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ import torch
 
 from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
 from feature_point_cnn_tpu_torch.data.photometric import photometric_augment_batch
+from feature_point_cnn_tpu_torch.device import constant
 from feature_point_cnn_tpu_torch.geometry.homography import (
     homographic_augmentation_batch,
     sample_homography_batch,
@@ -47,6 +64,7 @@ from feature_point_cnn_tpu_torch.ops.labels import (
     make_points_labels_batch,
     scale_valid_map,
 )
+from feature_point_cnn_tpu_torch.parallel import spatial
 from feature_point_cnn_tpu_torch.parallel.collectives import all_sum_, group, shard
 from feature_point_cnn_tpu_torch.train.loss import detector_loss, global_loss
 from feature_point_cnn_tpu_torch.train.optimizer import Optimizer
@@ -125,8 +143,9 @@ def _microbatched_backward(
 
 
 def _all_sum_grads(model: SuperPoint) -> None:
-    """Sum the gradients in ``.grad`` over the data group, in ONE all-reduce
-    of a flat buffer (each rank's are its share of the global gradient)."""
+    """Sum the gradients in ``.grad`` over the data or width group, in ONE
+    all-reduce of a flat buffer (each rank's are its share of the global
+    gradient)."""
     if group() is None:
         return
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -147,8 +166,14 @@ def _global_metrics(shares: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _f1_share(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """This rank's share of the global batch's mean per-sample F1."""
-    return samplewise_f1(logits, labels) / shard()[1]
+    """This rank's share of the global batch's mean per-sample F1: its rows'
+    share under a data group; under a width group its cells' share of each
+    sample, over the whole image's cell count (one all-reduce)."""
+    if spatial.group() is None:
+        return samplewise_f1(logits, labels) / shard()[1]
+    correct = (logits.argmax(dim=-1) == labels).to(torch.float32)
+    cells = all_sum_(constant((float(correct[0].numel()),), correct.device))[0]
+    return correct.reshape(correct.shape[0], -1).sum(dim=-1).mean() / cells
 
 
 def _interleave(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -213,16 +238,18 @@ def _prep_and_label(batch: Batch, gen: torch.Generator, config: SuperPointConfig
                     augment: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MagicPoint phase's images (photometric augmentation when
     ``augment`` and the config say so) and labels, each draw made for the
-    global batch."""
+    global batch; under a width group, for the whole image, of which this
+    rank keeps its columns."""
     images = _prep_images(batch["image"], config)
-    h, w = images.shape[1:3]
+    h, w = images.shape[1], images.shape[2] * spatial.split()[1]
     if augment and config.photometric_augment:
-        images = photometric_augment_batch(gen, images, shard=shard())
+        whole = spatial.gather_width(images, 2)
+        images = spatial.own_block(photometric_augment_batch(gen, whole, shard=shard()), 2)
     labels = make_points_labels_batch(
         batch["points"], batch["points_valid"], gen, h, w, config.cell,
         shard=shard(),
     )
-    return images, labels
+    return images, spatial.own_block(labels, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +263,9 @@ def _augment_and_encode(
 ):
     """-> ``(warped, labels, wlabels, cell_mask (B, Hc, Wc), homog (B, 8),
     images)``.  Draw order: photometric (when on), homographies, label
-    noise, warped-label noise."""
-    images = _prep_images(batch["image"], config)
+    noise, warped-label noise.  Under a width group ``batch["image"]`` is
+    this rank's block, gathered whole here, and every output is whole."""
+    images = spatial.gather_width(_prep_images(batch["image"], config), 2)
     b, h, w = images.shape[:3]
     index, count = part = shard()
     if config.photometric_augment:
@@ -265,8 +293,10 @@ def superpoint_train_step_encoded(
     """The step after augmentation: forward of both views at once, joint
     loss, backward, update.  ``data``: ``images``, ``warped`` ``(B, H, W,
     C)`` float32, ``labels``, ``wlabels`` ``(B, Hc, Wc)`` int64,
-    ``cell_mask (B, Hc, Wc)``, ``homog (B, 8)``."""
+    ``cell_mask (B, Hc, Wc)``, ``homog (B, 8)``; whole on every rank of a
+    width group, which keeps its columns."""
     model = state.model.train()
+    data = _own_columns(data)
 
     def micro_loss(m):
         mb = m["images"].shape[0]
@@ -297,6 +327,12 @@ def superpoint_train_step_encoded(
     return state, metrics
 
 
+def _own_columns(data: Batch) -> Batch:
+    """This rank's columns of whole-width encoded data (``homog`` stays
+    whole); the same tensors outside a width group."""
+    return {k: v if k == "homog" else spatial.own_block(v, 2) for k, v in data.items()}
+
+
 def superpoint_train_step(
     state: TrainState, batch: Batch, gen: torch.Generator, *,
     config: SuperPointConfig,
@@ -323,6 +359,8 @@ def superpoint_eval_step(
     warped, labels, wlabels, cell_mask, homog, images = _augment_and_encode(
         batch, gen, config, homo_config
     )
+    warped, labels, wlabels, cell_mask, images = (
+        spatial.own_block(t, 2) for t in (warped, labels, wlabels, cell_mask, images))
     b = images.shape[0]
     logits2, desc2 = model.features(torch.cat([images, warped], dim=0))
     losses = global_loss(

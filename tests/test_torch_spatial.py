@@ -129,16 +129,19 @@ def _gradients(inputs, mesh, name):
 
 def _refusals(inputs, mesh):
     """What a width group refuses, each message (every rank of it raises)."""
+    from feature_point_cnn_tpu_torch.parallel import collectives
+
     out = {}
     model = _model(inputs["live"], "live")
     images = inputs["images"]["w48_d2"]
     for name, fn in (
         ("indivisible", lambda: M.shard_images_spatial(images[:, :, :40], mesh)),
-        ("train", lambda: model.train()(M.shard_images_spatial(images, mesh))),
+        ("data_and_width", lambda: model.train()(M.shard_images_spatial(images, mesh))),
     ):
         try:
             with torch.no_grad(), spatial.width_group(None if name == "indivisible"
-                                                      else mesh.group):
+                                                      else mesh.group), \
+                    collectives.data_group(None if name == "indivisible" else mesh.group):
                 fn()
             out[name] = ""
         except ValueError as e:
@@ -518,12 +521,13 @@ def test_a_width_group_of_one_rank_is_the_plain_forward(job):
 
 @pytest.mark.parametrize("what,match", [
     ("indivisible", "mesh size x the total stride"),
-    ("train", "train-mode BatchNorm"),
+    ("data_and_width", "meshes have one axis"),
 ])
 def test_a_width_group_refuses_what_it_cannot_split(job, what, match):
     """A width that is not a multiple of d x 8 (GSPMD would quietly
-    replicate it) and train-mode BatchNorm: each a ValueError on every
-    rank."""
+    replicate it) and a train-mode forward inside a data group as well as
+    a width group (the JAX package's meshes have one axis): each a
+    ValueError on every rank."""
     job.wait()
     for r in range(2):
         raised = json.loads((job.work / f"refusals_{r}.json").read_text())

@@ -40,6 +40,7 @@ import torch
 
 from feature_point_cnn_tpu.config import HomographyConfig as JaxHomographyConfig
 from feature_point_cnn_tpu.config import SuperPointConfig as JaxConfig
+from feature_point_cnn_tpu.models.superpoint import SuperPoint as JaxSuperPoint
 from feature_point_cnn_tpu.models.superpoint import init_superpoint
 from feature_point_cnn_tpu.train import steps as jsteps
 from feature_point_cnn_tpu.train.optimizer import make_optimizer as jax_make_optimizer
@@ -63,7 +64,9 @@ NO_FAMILIES = dict(perspective=False, scaling=False, rotation=False,
 @functools.lru_cache(maxsize=None)
 def _jax_init():
     cfg = JaxConfig(use_pallas_desc_loss="off", **KW)
-    model, variables = init_superpoint(jax.random.PRNGKey(0), cfg)
+    # jitted: the same bits as op by op, in a third of the time
+    variables = jax.jit(lambda key: init_superpoint(key, cfg)[1])(jax.random.PRNGKey(0))
+    model = JaxSuperPoint(config=cfg)
     rng = np.random.default_rng(0)
 
     def jitter(path, x):      # BatchNorm scales, biases and statistics off 1 / 0
