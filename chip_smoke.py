@@ -190,13 +190,13 @@ Their ``launches`` count the serving path's calls; ``launches_selflabel``
 and ``launches_eval`` those of phases 9 and 10, each counted from 0 just
 before its path, and ``selflabel_shape`` the kernel at the self-labeling
 shape (decode at threshold 0 on the 240 warped views, NMS on the 16
-aggregated maps).  ``launches_train_data`` counts each wrapper's calls in
-phase 11 (a CUDA graph replay calls no wrapper: the descriptor-loss rows
-count the eager steps, the warm-up and the capture, and
-``graph_replay_kernels_traced`` gives the kernels a trace of one call of 4
-replays shows); ``launches_tracking`` (rows 1-2) counts phase 12's tracking
-entry-point runs and ``launches_cli`` each wrapper's calls in phase 12's
-command line; ``launches_parallel`` each wrapper's calls in phase 13,
+aggregated maps).  ``launches_train_data`` counts each kernel's launches in
+phase 11 (a CUDA graph replay counts what its capture counted: the
+descriptor-loss rows count the eager steps, the capture's warm-up and the
+replays, and ``graph_replay_kernels_traced`` gives the kernels a trace of
+one call of 4 replays shows); ``launches_tracking`` (rows 1-2) counts phase
+12's tracking entry-point runs and ``launches_cli`` each wrapper's calls in
+phase 12's command line; ``launches_parallel`` each wrapper's calls in phase 13,
 summed over its processes (``launches_parallel_by_rank``: gloo rank 0,
 gloo rank 1, the NCCL rank), each counted from 0 before its path, and
 ``launches_spatial`` each wrapper's calls in phase 13's W-sharded scenario
@@ -229,6 +229,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from feature_point_cnn_tpu_torch.utils import profiling
 
 H, W = 480, 640
 SHIFT = 16           # px; a multiple of the 8-px cell keeps detections equivariant
@@ -678,27 +680,21 @@ def nms_inputs(decoded: torch.Tensor, seed: int):
     return out
 
 
-def kernel_counts() -> dict:
-    """Each kernel wrapper's launch count, by the kernel rows' names."""
-    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
-    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
-        hinge_descriptor_loss_cuda)
-    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
+# the kernel rows' names of the tracer's launch counters
+KERNEL_COUNTERS = {"decode_threshold": "kernel.decode_threshold",
+                   "grid_nms": "kernel.grid_nms",
+                   "descriptor_loss_fwd": "kernel.desc_loss_fwd",
+                   "descriptor_loss_bwd": "kernel.desc_loss_bwd"}
 
-    return {"decode_threshold": decode_threshold_cuda.launches,
-            "grid_nms": grid_nms_cuda.launches,
-            "descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
-            "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
+
+def kernel_counts(names=tuple(KERNEL_COUNTERS)) -> dict:
+    """The tracer's launch counters of the named kernels, by the kernel
+    rows' names (a CUDA graph replay counts what its capture counted)."""
+    return {k: profiling.COUNTERS[KERNEL_COUNTERS[k]] for k in names}
 
 
 def zero_kernel_counts() -> None:
-    from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
-    from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
-        hinge_descriptor_loss_cuda)
-    from feature_point_cnn_tpu_torch.ops.kernels.nms import grid_nms_cuda
-
-    decode_threshold_cuda.launches = grid_nms_cuda.launches = 0
-    hinge_descriptor_loss_cuda.launches_fwd = hinge_descriptor_loss_cuda.launches_bwd = 0
+    profiling.reset_counters()
 
 
 SL_IMAGES = 64        # scenes labelled in phase 9: 4 batches of 16
@@ -775,8 +771,7 @@ def selflabel_phase(seed: int, card: str) -> dict:
 
     # the main path: counts set to 0, preprocess_folder, counts read; each
     # batch's start is stamped (a call returns host arrays, so it has synced)
-    decode_threshold_cuda.launches = 0
-    grid_nms_cuda.launches = 0
+    zero_kernel_counts()
     stamps = []
     run = fe.run_with_homography_adaptation
 
@@ -793,8 +788,7 @@ def selflabel_phase(seed: int, card: str) -> dict:
     stamps.append(time.perf_counter())
     total_s = stamps[-1] - t0
     del fe.run_with_homography_adaptation
-    launches = {"decode_threshold": decode_threshold_cuda.launches,
-                "grid_nms": grid_nms_cuda.launches}
+    launches = kernel_counts(("decode_threshold", "grid_nms"))
     n_batches = -(-SL_IMAGES // bsz)
     periods = np.diff(stamps)
     rate = bsz / float(np.median(periods[1:]))
@@ -957,14 +951,12 @@ def eval_phase(seed: int, card: str) -> dict:
                 "mild": HomographyConfig(patch_ratio=0.8, max_angle=np.pi / 6)}
     launches = {"decode_threshold": 0, "grid_nms": 0}
     for name, homo in families.items():
-        decode_threshold_cuda.launches = 0
-        grid_nms_cuda.launches = 0
+        zero_kernel_counts()
         t0 = time.perf_counter()
         agg = evaluate_pairs(fe, imgs, homo, seed=seed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {"decode_threshold": decode_threshold_cuda.launches,
-               "grid_nms": grid_nms_cuda.launches}
+        got = kernel_counts(("decode_threshold", "grid_nms"))
         for k in launches:
             launches[k] += got[k]
         print(f"eval {name} family ({Path(weights).name}, {th}x{tw}, K = 512, "
@@ -1102,9 +1094,7 @@ def train_data_phase(seed: int, card: str, survey: dict) -> dict:
     for phase in ("magicpoint", "superpoint"):
         params = {}
         for k in (1, TD_K):
-            decode_threshold_cuda.launches = grid_nms_cuda.launches = 0
-            hinge_descriptor_loss_cuda.launches_fwd = 0
-            hinge_descriptor_loss_cuda.launches_bwd = 0
+            zero_kernel_counts()
             ck = work / f"ck_{phase}_{k}"
             tr = Trainer(cfg32.replace(train_steps_per_call=k), phase, loader, None,
                          str(ck), seed=seed, device="cuda", log_every=1)
@@ -1117,10 +1107,7 @@ def train_data_phase(seed: int, card: str, survey: dict) -> dict:
                   f"{phase} k = {k}: {len(loader)} steps taken, none skipped")
             check((tr._graph is not None) == (k > 1), f"{phase} k = {k}: graphed iff k > 1")
             check(all(np.isfinite(v) for v in m.values()), f"{phase} k = {k}: finite metrics")
-            got = {"decode_threshold": decode_threshold_cuda.launches,
-                   "grid_nms": grid_nms_cuda.launches,
-                   "descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
-                   "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
+            got = kernel_counts()
             for key in launches:
                 launches[key] += got[key]
             runs = ck / "runs"
@@ -1135,14 +1122,25 @@ def train_data_phase(seed: int, card: str, survey: dict) -> dict:
             check(got["decode_threshold"] > 0 and got["grid_nms"] > 0,
                   f"{phase} k = {k}: the overlay went through decode and NMS")
             if phase == "superpoint":
-                # eager: a step each; graphed: 2 warm-up steps, the capture
-                # and the tail of 1 (the replays launch without the wrapper)
-                want = len(loader) if k == 1 else 2 + 1 + len(loader) % k
+                # eager: a step each; graphed: the capture's 2 warm-up
+                # steps, then a step each (a replay counts what the capture
+                # counted, the capture itself nothing)
+                want = len(loader) + (0 if k == 1 else 2)
                 check(got["descriptor_loss_fwd"] == got["descriptor_loss_bwd"] == want,
-                      f"superpoint k = {k}: descriptor-loss wrappers {want} times")
+                      f"superpoint k = {k}: descriptor-loss launches counted {want} times")
             params[k] = {n: v.detach().clone() for n, v in tr.state.model.state_dict().items()}
             if k > 1:
                 idxs = list(loader.epoch_index_arrays(1))[:k]
+                before = profiling.counters()
+                tr.train_steps(idxs, 1, 0)
+                torch.cuda.synchronize()
+                counted = profiling.counted_since(before)
+                want = {"train.steps": k}
+                if phase == "superpoint":
+                    want.update({"kernel.desc_loss_fwd": k, "kernel.desc_loss_bwd": k})
+                print(f"train data {phase}: the tracer's counters over one call of {k} "
+                      f"replays {counted}")
+                check(counted == want, f"{phase}: one call of {k} replays counts {want}")
                 graph_launches[phase] = traced_launches(
                     lambda: tr.train_steps(idxs, 1, 0), DL_KERNEL_NAMES, calls=2)
                 print(f"train data {phase}: kernels in a traced call of {k} replays "
@@ -3161,15 +3159,13 @@ def main(argv=None) -> int:
     print(f"[phase 3 done at {time.perf_counter() - t_start:.1f} s]")
     # ---- 4. end to end: the main path ----------------------------------
     n = min(256, cfg.max_keypoints)
-    decode_threshold_cuda.launches = 0
-    grid_nms_cuda.launches = 0
+    zero_kernel_counts()
     key_in = torch.from_numpy(key_frame[None]).cuda()
     zero_key = torch.zeros((n, cfg.descriptor_dim), dtype=torch.float16, device="cuda")
     k_num, k_packed, _, k_desc = fe.frame(key_in, zero_key, 0)
     num, packed, match_index, _ = fe.frame(batch_u8, k_desc[0], k_num[0])
     torch.cuda.synchronize()
-    launches = {"decode_threshold": decode_threshold_cuda.launches,
-                "grid_nms": grid_nms_cuda.launches}
+    launches = kernel_counts(("decode_threshold", "grid_nms"))
     main_rounds = grid_nms_cuda.last_rounds.tolist()
     print(f"main path launches: {launches} (last NMS rounds {main_rounds})")
     check(all(v > 0 for v in launches.values()), "both kernels ran on the main path")
@@ -3470,12 +3466,10 @@ def main(argv=None) -> int:
                       device="cuda", log_every=1, write_statistics=False)
     model_t = trainer.state.model
     before = {k: v.detach().clone() for k, v in model_t.state_dict().items()}
-    hinge_descriptor_loss_cuda.launches_fwd = 0
-    hinge_descriptor_loss_cuda.launches_bwd = 0
+    zero_kernel_counts()
     epochs = [trainer.train_epoch(e) for e in range(TRAIN_STEPS // len(loader))]
     torch.cuda.synchronize()
-    dl_launches = {"descriptor_loss_fwd": hinge_descriptor_loss_cuda.launches_fwd,
-                   "descriptor_loss_bwd": hinge_descriptor_loss_cuda.launches_bwd}
+    dl_launches = kernel_counts(("descriptor_loss_fwd", "descriptor_loss_bwd"))
     shutil.rmtree(ckpt_dir)
     print(f"training path launches: {dl_launches} in {trainer.state.step} steps")
     check(trainer.state.step == TRAIN_STEPS, f"{TRAIN_STEPS} steps taken")

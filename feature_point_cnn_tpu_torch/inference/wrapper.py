@@ -17,6 +17,12 @@ batch over the ranks of a data mesh (`parallel/mesh.py`): each rank runs
 `extract_fn` on its rows and every rank gets the whole batch back;
 `SuperPointFrontend.extract_spatial` splits each image along W over a width
 mesh instead, which JAX's ``extract_fn`` does on a W-sharded input.
+
+The tracer's spans (`utils/profiling.py`) of a ``frame`` call: ``frame``
+(the root, with the batch size), ``frame.upload`` (the host-to-device
+copy), ``frame.prep``, and in `extract_fn` ``frame.forward``,
+``frame.detect`` (decode, NMS, border, top-K) and ``frame.describe``,
+then ``frame.match`` (the top-n rows, the match, the packing).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from feature_point_cnn_tpu_torch.selflabel.adaptation import (
     homography_adaptation,
 )
 from feature_point_cnn_tpu_torch.utils import checkpoint as ckpt
+from feature_point_cnn_tpu_torch.utils import profiling
 from feature_point_cnn_tpu_torch.utils.weights import load_variables
 
 
@@ -73,22 +80,25 @@ def extract_fn(
     descriptor map stays sharded (`sample_descriptors`).
     """
     h, w = images.shape[1], images.shape[2] * spatial.split()[1]
-    logits, desc_map = model.features(images)
-    prob = None
-    if use_kernel(config.use_cuda_decode, logits):
-        scores = spatial.gather_width(
-            decode_threshold_cuda(logits, config.cell, config.confidence_thresh), 2)
-        kp = extract_keypoints_from_scores(scores, config)
-    else:
-        prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
-        kp = extract_keypoints(prob, config)
-    if config.subpixel_refine:
-        # refine on the RAW prob map: the thresholded map zeroes
-        # sub-threshold neighbours and would bias the fit
-        if prob is None:
+    with profiling.span("frame.forward"):
+        logits, desc_map = model.features(images)
+    with profiling.span("frame.detect"):
+        prob = None
+        if use_kernel(config.use_cuda_decode, logits):
+            scores = spatial.gather_width(
+                decode_threshold_cuda(logits, config.cell, config.confidence_thresh), 2)
+            kp = extract_keypoints_from_scores(scores, config)
+        else:
             prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
-        kp = refine_keypoints(prob, kp)
-    return kp, sample_descriptors(desc_map, kp, h, w)
+            kp = extract_keypoints(prob, config)
+        if config.subpixel_refine:
+            # refine on the RAW prob map: the thresholded map zeroes
+            # sub-threshold neighbours and would bias the fit
+            if prob is None:
+                prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
+            kp = refine_keypoints(prob, kp)
+    with profiling.span("frame.describe"):
+        return kp, sample_descriptors(desc_map, kp, h, w)
 
 
 def adaptation_prob_fn(model: SuperPoint, config: SuperPointConfig):
@@ -255,16 +265,18 @@ class SuperPointFrontend:
         top N.  Frame ``b``'s ``(desc16[b], num_valid[b])`` is the next
         keyframe input.
         """
-        images = self._images(images)
-        b = images.shape[0]
-        program = self._programs.get((b, top_n))
-        if program is None:
-            program = FrameProgram(self.model, self.config, "packed", top_n, b)
-            program = self._programs[(b, top_n)] = program.to(self.device)
-        key_desc = torch.as_tensor(key_desc, device=self.device)
-        key_num = torch.as_tensor(key_num, dtype=torch.int32, device=self.device)
-        out = program(images, key_desc, key_num)
-        return tuple(t[None] for t in out) if b == 1 else out[:4]
+        b = len(images)
+        with profiling.span("frame", batch=b):
+            with profiling.span("frame.upload"):
+                images = self._images(images)
+            program = self._programs.get((b, top_n))
+            if program is None:
+                program = FrameProgram(self.model, self.config, "packed", top_n, b)
+                program = self._programs[(b, top_n)] = program.to(self.device)
+            key_desc = torch.as_tensor(key_desc, device=self.device)
+            key_num = torch.as_tensor(key_num, dtype=torch.int32, device=self.device)
+            out = program(images, key_desc, key_num)
+            return tuple(t[None] for t in out) if b == 1 else out[:4]
 
     def export_program(self, path: str, image_size: Tuple[int, int]) -> None:
         """`torch.export.save` of the extract program at ``(1, H, W, C)``
@@ -419,25 +431,28 @@ class FrameProgram(nn.Module):
 
     def forward(self, image: torch.Tensor, key_desc: torch.Tensor, key: torch.Tensor):
         cfg = self.config
-        kp, desc = extract_fn(self.model, prep_images(image, cfg.image_channels), cfg)
-        if self.abi == "full":
-            m = mnn_match(desc[0], kp.valid[0], key_desc, key, max_l2_dist=cfg.nn_thresh)
-            return kp.y[0], kp.x[0], kp.score[0], kp.valid[0], m.index, m.valid, desc[0]
-        n = self.slots.shape[0]
-        # keypoints are score-sorted, so the first n rows are the top n
-        y, x = kp.y[:, :n], kp.x[:, :n]
-        score, valid = kp.score[:, :n], kp.valid[:, :n]
-        desc_n = torch.where(valid[..., None], desc[:, :n], 0.0)
-        m = mnn_match(desc_n, valid, key_desc.float(), self.slots < key,
-                      max_l2_dist=cfg.nn_thresh)
-        num_valid = valid.sum(-1, dtype=torch.int32)
-        # coordinates stay float32 (f16 spacing is 0.5 px beyond x = 512)
-        packed = torch.stack([y, x, score], dim=-1)
-        match_index = torch.where(m.valid, m.index, -1).to(torch.int32)
-        desc16 = desc_n.to(torch.float16)
-        if self.batch == 1:
-            return num_valid[0], packed[0], match_index[0], desc16[0]
-        return num_valid, packed, match_index, desc16, desc16[0], num_valid[0]
+        with profiling.span("frame.prep"):
+            image = prep_images(image, cfg.image_channels)
+        kp, desc = extract_fn(self.model, image, cfg)
+        with profiling.span("frame.match"):
+            if self.abi == "full":
+                m = mnn_match(desc[0], kp.valid[0], key_desc, key, max_l2_dist=cfg.nn_thresh)
+                return kp.y[0], kp.x[0], kp.score[0], kp.valid[0], m.index, m.valid, desc[0]
+            n = self.slots.shape[0]
+            # keypoints are score-sorted, so the first n rows are the top n
+            y, x = kp.y[:, :n], kp.x[:, :n]
+            score, valid = kp.score[:, :n], kp.valid[:, :n]
+            desc_n = torch.where(valid[..., None], desc[:, :n], 0.0)
+            m = mnn_match(desc_n, valid, key_desc.float(), self.slots < key,
+                          max_l2_dist=cfg.nn_thresh)
+            num_valid = valid.sum(-1, dtype=torch.int32)
+            # coordinates stay float32 (f16 spacing is 0.5 px beyond x = 512)
+            packed = torch.stack([y, x, score], dim=-1)
+            match_index = torch.where(m.valid, m.index, -1).to(torch.int32)
+            desc16 = desc_n.to(torch.float16)
+            if self.batch == 1:
+                return num_valid[0], packed[0], match_index[0], desc16[0]
+            return num_valid, packed, match_index, desc16, desc16[0], num_valid[0]
 
 
 def graph_ops(ep) -> set:

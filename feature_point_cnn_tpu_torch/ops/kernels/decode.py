@@ -29,6 +29,7 @@ from feature_point_cnn_tpu_torch.ops.kernels import (
     stream_of,
 )
 from feature_point_cnn_tpu_torch.ops.labels import restore_prob_map
+from feature_point_cnn_tpu_torch.utils import profiling
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -96,7 +97,7 @@ def _launch(logits: torch.Tensor, cell: int, threshold: float) -> torch.Tensor:
             stream_of(logits),
         )
     check_launch(err, "decode_threshold_launch")
-    decode_threshold_cuda.launches += 1
+    profiling.count("kernel.decode_threshold")
     return out
 
 
@@ -110,9 +111,6 @@ def decode_threshold_cuda(
     logits: torch.Tensor, cell: int, threshold: float
 ) -> torch.Tensor:
     """The decode kernel on a CUDA tensor, its plain version on a CPU one,
-    both through ``fpc::decode_threshold``.
-    ``decode_threshold_cuda.launches`` counts kernel runs."""
+    both through ``fpc::decode_threshold``.  The tracer's counter
+    ``kernel.decode_threshold`` counts kernel runs."""
     return decode_threshold_op(logits, cell, threshold)
-
-
-decode_threshold_cuda.launches = 0

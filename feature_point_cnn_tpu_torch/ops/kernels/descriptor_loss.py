@@ -41,6 +41,7 @@ from feature_point_cnn_tpu_torch.ops.kernels import (
     load_library,
     stream_of,
 )
+from feature_point_cnn_tpu_torch.utils import profiling
 
 _EPS = 1e-12      # matches train/loss.py:_l2_normalize
 _OWN = 128        # kOwn of the source: rows a block owns, one partial loss each
@@ -174,7 +175,7 @@ class _HingeDescriptorLoss(torch.autograd.Function):
                 stream_of(d),
             )
         check_launch(err, "descriptor_loss_fwd_launch")
-        hinge_descriptor_loss_cuda.launches_fwd += 1
+        profiling.count("kernel.desc_loss_fwd")
         ctx.save_for_backward(d, wd, wc, ct, mj, rr, c)
         ctx.params = params
         ctx.width = width
@@ -200,7 +201,7 @@ class _HingeDescriptorLoss(torch.autograd.Function):
                 scratch.data_ptr(), b, n, dim, *ctx.params, stream_of(d),
             )
         check_launch(err, "descriptor_loss_bwd_launch")
-        hinge_descriptor_loss_cuda.launches_bwd += 1
+        profiling.count("kernel.desc_loss_bwd")
         if ctx.width != dim:
             dd, dwd = dd[..., :ctx.width], dwd[..., :ctx.width]
         return dd, dwd, None, None, None, None, None, None, None
@@ -220,10 +221,10 @@ def hinge_descriptor_loss_cuda(
     """The descriptor-loss kernels on CUDA tensors (forward now, backward
     when autograd asks), the plain version on CPU tensors.  Arguments and
     result as :func:`hinge_descriptor_loss_plain`; no gradient flows to the
-    centers or the mask.  ``launches_fwd`` / ``launches_bwd`` count the calls
-    of each direction's launcher; a forward call is 5 CUDA launches (the
-    split, three sweeps, the sum of the partial losses) and a backward call
-    6 (two splits, four sweeps)."""
+    centers or the mask.  The tracer's counters ``kernel.desc_loss_fwd`` /
+    ``kernel.desc_loss_bwd`` count the calls of each direction's launcher;
+    a forward call is 5 CUDA launches (the split, three sweeps, the sum of
+    the partial losses) and a backward call 6 (two splits, four sweeps)."""
     if not d.is_cuda:
         return hinge_descriptor_loss_plain(
             d, wd, warped_centers, centers, mask_j, lambda_d, mp, mn, cell
@@ -232,7 +233,3 @@ def hinge_descriptor_loss_cuda(
         d, wd, warped_centers.detach(), centers.detach(), mask_j.detach(),
         lambda_d, mp, mn, cell,
     )
-
-
-hinge_descriptor_loss_cuda.launches_fwd = 0
-hinge_descriptor_loss_cuda.launches_bwd = 0

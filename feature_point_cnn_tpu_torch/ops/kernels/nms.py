@@ -30,6 +30,7 @@ from feature_point_cnn_tpu_torch.ops.kernels import (
     load_library,
     stream_of,
 )
+from feature_point_cnn_tpu_torch.utils import profiling
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -203,7 +204,7 @@ def _launch(scores: torch.Tensor, dist_thresh: int):
             stream_of(scores),
         )
     check_launch(err, "grid_nms_launch")
-    grid_nms_cuda.launches += 1
+    profiling.count("kernel.grid_nms")
     grid_nms_cuda.last_rounds = rounds
     return out, rounds
 
@@ -218,15 +219,15 @@ def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
     """The NMS kernel on a CUDA tensor, its plain version (to convergence)
     on a CPU one, both through ``fpc::grid_nms``.
 
-    ``grid_nms_cuda.launches`` counts kernel runs.  ``last_rounds`` is the
-    latest kernel run's ``(B,)`` int32 device tensor of suppression rounds
-    a frame; it is written on the stream, so read it after a synchronise.
+    The tracer's counter ``kernel.grid_nms`` counts kernel runs.
+    ``last_rounds`` is the latest kernel run's ``(B,)`` int32 device tensor
+    of suppression rounds a frame; it is written on the stream, so read it
+    after a synchronise.
     Nothing is read back on the host.
     """
     return grid_nms_op(scores, dist_thresh)[0]
 
 
-grid_nms_cuda.launches = 0
 grid_nms_cuda.last_rounds = None
 
 

@@ -31,6 +31,9 @@ Summaries (`utils/summary.py`): train and test scalars, a model table, BN-
 free parameter histograms and a keypoint-overlay image through the serving
 extract (the decode and NMS kernels on the card); a summary that fails
 never stops training.  ``FPC_PROFILE_DIR`` traces steps 5-15 of epoch 0.
+The tracer's spans (`utils/profiling.py`): ``train.call`` a `train_steps`
+call, ``train.capture`` the graph's capture in it, ``train.step`` an eager
+step of an epoch; the counter ``train.steps`` counts the optimizer steps.
 """
 
 from __future__ import annotations
@@ -251,11 +254,15 @@ class Trainer:
         # the replays draw from the generator's state at replay time
         graph.register_generator_state(self.gen)
         self._seed(0, 0)
+        before = profiling.counters()
         with torch.cuda.graph(graph):
             metrics = self._fused_step(self._static_idx, self.gen)
             self._static_names = list(metrics)
             self._static_metrics = torch.stack(
                 [metrics[k].to(torch.float32) for k in self._static_names])
+        # the capture ran nothing: what it counted is credited at each replay
+        self._replay_counts = profiling.counted_since(before)
+        profiling.credit(self._replay_counts, -1)
         self.state.step = step0
         self._graph = graph
 
@@ -269,21 +276,25 @@ class Trainer:
         ``(len(idxs),)``, still on the device."""
         if not self._fused_loader:
             raise ValueError("train_steps needs a DeviceBatchLoader")
-        if self.device.type != "cuda":
-            out = [self._fused_step(idx, self._seed(epoch, first + j))
-                   for j, idx in enumerate(idxs)]
-            return {k: torch.stack([m[k] for m in out]) for k in out[0]}
-        if self._graph is None:
-            self._capture()
-        rows = torch.empty((len(idxs), len(self._static_names)),
-                           dtype=torch.float32, device=self.device)
-        for j, idx in enumerate(idxs):
-            self._static_idx.copy_(idx)
-            self._seed(epoch, first + j)
-            self._graph.replay()
-            rows[j].copy_(self._static_metrics)
-        self.state.step += len(idxs)
-        return {k: rows[:, i] for i, k in enumerate(self._static_names)}
+        with profiling.span("train.call"):
+            profiling.count("train.steps", len(idxs))
+            if self.device.type != "cuda":
+                out = [self._fused_step(idx, self._seed(epoch, first + j))
+                       for j, idx in enumerate(idxs)]
+                return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+            if self._graph is None:
+                with profiling.span("train.capture"):
+                    self._capture()
+            rows = torch.empty((len(idxs), len(self._static_names)),
+                               dtype=torch.float32, device=self.device)
+            for j, idx in enumerate(idxs):
+                self._static_idx.copy_(idx)
+                self._seed(epoch, first + j)
+                self._graph.replay()
+                rows[j].copy_(self._static_metrics)
+            profiling.credit(self._replay_counts, len(idxs))
+            self.state.step += len(idxs)
+            return {k: rows[:, i] for i, k in enumerate(self._static_names)}
 
     # ------------------------------------------------------------------
     # summaries
@@ -395,7 +406,8 @@ class Trainer:
                 for i, item in enumerate(self.train_loader.epoch(epoch)):
                     window.tick(i)
                     batch = self._to_device(shard_batch(item, self.mesh))
-                    with profiling.annotate(f"{self.phase}_train_step"):
+                    with profiling.span("train.step"):
+                        profiling.count("train.steps")
                         _, metrics = self._train_step(batch, self._seed(epoch, i))
                     if (i + 1) % self.log_every == 0 or i == 0:
                         self._log(metrics, epoch, i + 1, t0, logged,
@@ -419,12 +431,13 @@ class Trainer:
             window.tick(done)
             n = k if len(idxs) - done >= k else 1
             chunk = idxs[done:done + n]
-            with profiling.annotate(f"{self.phase}_train_call"):
-                if n == 1:
+            if n == 1:
+                with profiling.span("train.step"):
+                    profiling.count("train.steps")
                     metrics = self._fused_step(chunk[0], self._seed(epoch, done))
-                else:
-                    metrics = {key: v[-1] for key, v in
-                               self.train_steps(chunk, epoch, done).items()}
+            else:
+                metrics = {key: v[-1] for key, v in
+                           self.train_steps(chunk, epoch, done).items()}
             done += n
             if done % self.log_every < n or done == n:
                 last = chunk[-1]

@@ -48,6 +48,7 @@ from feature_point_cnn_tpu_torch.ops.kernels.nms import (
     nms_layout,
     plain_rounds,
 )
+from feature_point_cnn_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -67,9 +68,9 @@ def test_decode_kernel_matches_plain(rng, shape):
     logits = _cuda(rng.standard_normal((*shape, 65)) * 4)
     logits[0, 0, 0] = 300.0          # extreme but finite logits
     logits[0, 0, 0, 3] = 400.0
-    n0 = decode_threshold_cuda.launches
+    n0 = profiling.COUNTERS["kernel.decode_threshold"]
     got = decode_threshold_cuda(logits, 8, 0.015)
-    assert decode_threshold_cuda.launches == n0 + 1
+    assert profiling.COUNTERS["kernel.decode_threshold"] == n0 + 1
     want = decode_threshold_plain(logits, 8, 0.015)
     prob = decode_threshold_plain(logits, 8, 0.0)
     flip = (got > 0) != (want > 0)
@@ -83,9 +84,9 @@ def test_nms_kernel_matches_plain_exactly(rng, density):
     vals = rng.random((3, 120, 168)).astype(np.float32) * 0.9 + 0.05
     vals[rng.random(vals.shape) >= density] = 0.0
     scores = _cuda(vals)
-    n0 = grid_nms_cuda.launches
+    n0 = profiling.COUNTERS["kernel.grid_nms"]
     got = grid_nms_cuda(scores, 4)
-    assert grid_nms_cuda.launches == n0 + 1
+    assert profiling.COUNTERS["kernel.grid_nms"] == n0 + 1
     assert torch.equal(got, grid_nms_plain(scores, 4))
 
 
@@ -194,12 +195,11 @@ def test_descriptor_loss_kernels_match_plain(rng, shape):
     _, hc, wc, _ = shape
     d, wd, *rest = _desc_loss_inputs(rng, *shape)
     scale = 1.0 / (float(rest[2].sum()) * hc * wc)   # the loss's normalisation
-    f0, b0 = (hinge_descriptor_loss_cuda.launches_fwd,
-              hinge_descriptor_loss_cuda.launches_bwd)
+    before = profiling.counters()
     got = _value_and_grads(hinge_descriptor_loss_cuda, d, wd, rest, scale)
     torch.cuda.synchronize()
-    assert hinge_descriptor_loss_cuda.launches_fwd == f0 + 1
-    assert hinge_descriptor_loss_cuda.launches_bwd == b0 + 1
+    assert profiling.counted_since(before) == {"kernel.desc_loss_fwd": 1,
+                                               "kernel.desc_loss_bwd": 1}
     want = _value_and_grads(hinge_descriptor_loss_plain, d, wd, rest, scale)
     torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0.0)
     for g, w in zip(got[1:], want[1:]):
@@ -255,7 +255,7 @@ def test_graphed_steps_equal_eager_steps(rng, tmp_path, phase):
     """k = 3 steps a call as replays of the captured step (7 batches: two
     calls and a tail of one) against k = 1 eager steps, float32 with TF32
     off: parameters within rtol 2e-4 + atol 2e-5; the descriptor-loss
-    wrappers were called inside the capture."""
+    launches counted, replays included."""
     from feature_point_cnn_tpu_torch.config import SuperPointConfig
     from feature_point_cnn_tpu_torch.data.device_store import DeviceBatchLoader
     from feature_point_cnn_tpu_torch.train.trainer import Trainer
@@ -275,14 +275,18 @@ def test_graphed_steps_equal_eager_steps(rng, tmp_path, phase):
         t = Trainer(cfg.replace(train_steps_per_call=k), phase, loader, None,
                     str(tmp_path / f"ck{k}"), device="cuda", log_every=1,
                     write_statistics=False)
-        hinge_descriptor_loss_cuda.launches_fwd = 0
+        before = profiling.counters()
         t.train_epoch(0)
         torch.cuda.synchronize()
         assert t.state.step == 7 and int(t.state.optimizer.count) == 7
         assert (t._graph is not None) == (k > 1)
+        counted = profiling.counted_since(before)
+        assert counted["train.steps"] == 7
         if phase == "superpoint":
-            # eager: once a step; graphed: 2 warm-up steps, the capture, the tail
-            assert hinge_descriptor_loss_cuda.launches_fwd == (7 if k == 1 else 4)
+            # eager: once a step; graphed: 2 warm-up steps, the 6 replays
+            # (each credited with what the capture counted), the tail
+            want = 7 if k == 1 else 2 + 6 + 1
+            assert counted["kernel.desc_loss_fwd"] == counted["kernel.desc_loss_bwd"] == want
         got[k] = {n: v.detach().clone() for n, v in t.state.model.state_dict().items()}
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.allow_tf32 = True
@@ -291,6 +295,36 @@ def test_graphed_steps_equal_eager_steps(rng, tmp_path, phase):
     print("max |graphed - eager| by tensor:", diff)
     for name, v in got[1].items():
         torch.testing.assert_close(got[3][name], v, rtol=2e-4, atol=2e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_replays_credit_the_captured_launches(rng, tmp_path):
+    """A training call of 4 replays counts what 4 eager steps count: 4
+    launches of each descriptor-loss direction and 4 steps.  The first
+    call adds the capture's 2 eager warm-up steps; the capture itself
+    runs nothing and counts nothing."""
+    from feature_point_cnn_tpu_torch.config import SuperPointConfig
+    from feature_point_cnn_tpu_torch.data.device_store import DeviceBatchLoader
+    from feature_point_cnn_tpu_torch.train.trainer import Trainer
+
+    ds = _packed_split(tmp_path, 8, 48, 64)
+    cfg = SuperPointConfig(compute_dtype="float32", train_image_size=(48, 64),
+                           batch_size=2, max_points=32, epochs=1,
+                           lr_schedule="constant", train_steps_per_call=4)
+    loader = DeviceBatchLoader(ds, 2, cfg.max_points, device="cuda")
+    t = Trainer(cfg, "superpoint", loader, None, str(tmp_path / "ck"), device="cuda",
+                write_statistics=False)
+    idxs = list(loader.epoch_index_arrays(0))
+    assert len(idxs) == 4
+    counted = []
+    for first in (0, 4):
+        before = profiling.counters()
+        t.train_steps(idxs, 0, first)
+        torch.cuda.synchronize()
+        counted.append(profiling.counted_since(before))
+    assert t._graph is not None and t.state.step == 8
+    assert counted == [{"kernel.desc_loss_fwd": 6, "kernel.desc_loss_bwd": 6, "train.steps": 4},
+                       {"kernel.desc_loss_fwd": 4, "kernel.desc_loss_bwd": 4, "train.steps": 4}]
 
 
 @pytest.mark.cuda
@@ -338,9 +372,9 @@ def test_fpc_ops_and_the_exported_frame_program(rng):
     )
 
     scores = _cuda(rng.random((3, 48, 64)) * (rng.random((3, 48, 64)) < 0.2))
-    n0 = grid_nms_cuda.launches
+    n0 = profiling.COUNTERS["kernel.grid_nms"]
     kept, rounds = torch.ops.fpc.grid_nms(scores, 4)
-    assert grid_nms_cuda.launches == n0 + 1
+    assert profiling.COUNTERS["kernel.grid_nms"] == n0 + 1
     assert torch.equal(kept, grid_nms_plain(scores, 4))
     assert rounds.tolist() == plain_rounds(scores, 4)
 
@@ -351,10 +385,11 @@ def test_fpc_ops_and_the_exported_frame_program(rng):
     image = _cuda(rng.random((1, 48, 64, 3)))
     key = (torch.zeros((32, 128), dtype=torch.float16, device="cuda"),
            torch.zeros((), dtype=torch.int32, device="cuda"))
-    d0, n0 = decode_threshold_cuda.launches, grid_nms_cuda.launches
+    before = profiling.counters()
     with torch.no_grad():
         got = ep.module()(image, *key)
-    assert (decode_threshold_cuda.launches, grid_nms_cuda.launches) == (d0 + 1, n0 + 1)
+    assert profiling.counted_since(before) == {"kernel.decode_threshold": 1,
+                                               "kernel.grid_nms": 1}
     num, packed, match, desc = (t.cpu().numpy() for t in fe.frame(image, *key, top_n=32))
     assert int(got[0]) == int(num[0])
     same = (got[1].cpu().numpy()[..., :2] == packed[0, :, :2]).all(-1)

@@ -34,6 +34,7 @@ from feature_point_cnn_tpu_torch.ops.kernels.nms import (
     grid_nms_plain,
     nms_priority_key,
 )
+from feature_point_cnn_tpu_torch.utils import profiling
 
 
 def assert_decode_close(got, want, threshold):
@@ -110,14 +111,14 @@ def test_priority_key_rejects_wide_window():
 def test_wrappers_take_plain_version_for_cpu_tensors(rng):
     """On a CPU tensor the wrappers run the plain version and count no
     launch; the gates switch on CUDA tensors only under "auto"."""
-    d0, n0 = decode_threshold_cuda.launches, grid_nms_cuda.launches
+    before = profiling.counters()
     logits = torch.from_numpy((rng.standard_normal((2, 6, 8, 65)) * 4)
                               .astype(np.float32))
     assert torch.equal(decode_threshold_cuda(logits, 8, 0.015),
                        decode_threshold_plain(logits, 8, 0.015))
     scores = torch.from_numpy(_random_scores(rng, 0.1)[None])
     assert torch.equal(grid_nms_cuda(scores, 4), grid_nms_plain(scores, 4))
-    assert (decode_threshold_cuda.launches, grid_nms_cuda.launches) == (d0, n0)
+    assert profiling.counted_since(before) == {}
     assert not use_kernel("auto", scores)
     assert use_kernel("on", scores) and not use_kernel("off", scores)
     with pytest.raises(ValueError):
