@@ -22,7 +22,10 @@ The tracer's spans (`utils/profiling.py`) of a ``frame`` call: ``frame``
 (the root, with the batch size), ``frame.upload`` (the host-to-device
 copy), ``frame.prep``, and in `extract_fn` ``frame.forward``,
 ``frame.detect`` (decode, NMS, border, top-K) and ``frame.describe``,
-then ``frame.match`` (the top-n rows, the match, the packing).
+then ``frame.match`` (the top-n rows, the match, the packing).  On the
+card ``frame`` replays a CUDA graph of the frame program (`FrameGraph`):
+a replayed call records ``frame``, ``frame.upload`` and ``frame.replay``
+only, since the program's own spans run at its capture alone.
 """
 
 from __future__ import annotations
@@ -183,11 +186,10 @@ class SuperPointFrontend:
             model.load_state_dict(fold_batchnorm(live.state_dict()))
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self._programs: Dict[Tuple[int, int], FrameProgram] = {}   # frame's, by (B, top_n)
+        self._graphs: Dict[tuple, FrameGraph] = {}   # frame's, by `frame_signature`
 
     def _images(self, images) -> torch.Tensor:
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.asarray(images))
-        return images.to(self.device)
+        return _host_tensor(images).to(self.device)
 
     @torch.inference_mode()
     def extract(self, images) -> Tuple[Keypoints, torch.Tensor]:
@@ -257,26 +259,46 @@ class SuperPointFrontend:
         ``images``: ``(B, H, W, C)`` uint8 (scaled by 1/255 here) or float in
         [0, 1], with C = 3 or 1 (gray, repeated to 3 channels here).
         ``key_desc``: ``(N, D)`` float16 keyframe descriptors, ``key_num``
-        its valid row count; N = ``min(top_n, max_keypoints)``.
+        its valid row count; N = ``min(top_n, max_keypoints)``.  Either may
+        be on the host.
 
         Returns ``(num_valid (B,) int32, kp_packed (B, N, 3) float32 [y, x,
         score], match_index (B, N) int32 (-1 = no match), desc16 (B, N, D)
-        float16)``.  Keypoints are score-sorted, so the first N rows are the
-        top N.  Frame ``b``'s ``(desc16[b], num_valid[b])`` is the next
-        keyframe input.
+        float16)``, tensors the caller owns.  Keypoints are score-sorted, so
+        the first N rows are the top N.  Frame ``b``'s ``(desc16[b],
+        num_valid[b])`` is the next keyframe input.
+
+        On the card, outside a width group, a call replays the CUDA graph
+        of its `frame_signature` (`FrameGraph`), captured at the
+        signature's first call; elsewhere the program runs eagerly.
         """
         b = len(images)
         with profiling.span("frame", batch=b):
-            with profiling.span("frame.upload"):
-                images = self._images(images)
+            images = _host_tensor(images)
             program = self._programs.get((b, top_n))
             if program is None:
                 program = FrameProgram(self.model, self.config, "packed", top_n, b)
                 program = self._programs[(b, top_n)] = program.to(self.device)
-            key_desc = torch.as_tensor(key_desc, device=self.device)
-            key_num = torch.as_tensor(key_num, dtype=torch.int32, device=self.device)
-            out = program(images, key_desc, key_num)
-            return tuple(t[None] for t in out) if b == 1 else out[:4]
+            if self.device.type == "cuda" and spatial.split()[1] == 1:
+                sig = frame_signature(images, top_n)
+                graph = self._graphs.get(sig)
+                if graph is None:
+                    graph = self._graphs[sig] = FrameGraph(program, images)
+                with profiling.span("frame.upload"):
+                    graph.image.copy_(images)
+                graph.key_desc.copy_(torch.as_tensor(key_desc))
+                graph.key_num.copy_(torch.as_tensor(key_num))
+                if graph.graph is None:
+                    graph.capture()
+                with profiling.span("frame.replay"):
+                    out = graph.replay()
+            else:
+                with profiling.span("frame.upload"):
+                    images = images.to(self.device)
+                key_desc = torch.as_tensor(key_desc, device=self.device)
+                key_num = torch.as_tensor(key_num, dtype=torch.int32, device=self.device)
+                out = program(images, key_desc, key_num)[:4]
+            return tuple(t[None] for t in out) if b == 1 else out
 
     def export_program(self, path: str, image_size: Tuple[int, int]) -> None:
         """`torch.export.save` of the extract program at ``(1, H, W, C)``
@@ -453,6 +475,73 @@ class FrameProgram(nn.Module):
             if self.batch == 1:
                 return num_valid[0], packed[0], match_index[0], desc16[0]
             return num_valid, packed, match_index, desc16, desc16[0], num_valid[0]
+
+
+def _host_tensor(images) -> torch.Tensor:
+    """An image batch as a tensor, left where it is."""
+    if isinstance(images, torch.Tensor):
+        return images
+    return torch.from_numpy(np.asarray(images))
+
+
+def frame_signature(images: torch.Tensor, top_n: int) -> tuple:
+    """``(B, H, W, C, image dtype, top_n)``: what a `FrameGraph` is captured
+    for.  The keyframe's shape and dtype follow from it (``(N, D)``
+    float16, N from ``top_n``)."""
+    return (*images.shape, images.dtype, top_n)
+
+
+class FrameGraph:
+    """One CUDA graph of a packed `FrameProgram` at one `frame_signature`.
+
+    It owns static inputs, the ``image`` buffer, ``key_desc (N, D)``
+    float16 and ``key_num ()`` int32, which a call fills before `replay`,
+    and the graph's outputs in its private memory pool, which `replay`
+    clones, so what a call returns stays the caller's after the next one.
+    `capture` runs the program eagerly twice on a side stream first, as
+    ``Trainer._capture`` does (cuDNN and cuBLAS handles, the kernels'
+    libraries, cached constants), then captures it.  The hand-written
+    kernels launch inside the graph; the ``kernel.*`` counts of the
+    capture are taken back and credited at each replay.
+    """
+
+    def __init__(self, program: FrameProgram, images: torch.Tensor):
+        device = program.slots.device
+        self.program = program
+        self.image = torch.empty(images.shape, dtype=images.dtype, device=device)
+        self.key_desc = torch.empty((program.slots.shape[0], program.config.descriptor_dim),
+                                    dtype=torch.float16, device=device)
+        self.key_num = torch.empty((), dtype=torch.int32, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def capture(self) -> None:
+        """Warm up and capture, on the filled static inputs."""
+        inputs = (self.image, self.key_desc, self.key_num)
+        with torch.cuda.device(self.image.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self.program(*inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = profiling.counters()
+            with torch.cuda.graph(graph):
+                self.outputs = self.program(*inputs)[:4]
+        # the capture ran nothing: what it counted is credited at each replay
+        self.counts = {k: v for k, v in profiling.counted_since(before).items()
+                       if k.startswith("kernel.")}
+        profiling.credit(self.counts, -1)
+        profiling.count("frame.captures")
+        self.graph = graph
+
+    def replay(self) -> Tuple[torch.Tensor, ...]:
+        """The program on the static inputs: clones of its four outputs."""
+        self.graph.replay()
+        out = tuple(t.clone() for t in self.outputs)
+        profiling.credit(self.counts)
+        profiling.count("frame.replays")
+        return out
 
 
 def graph_ops(ep) -> set:

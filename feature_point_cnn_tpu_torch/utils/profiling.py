@@ -16,6 +16,9 @@
   `reset_counters`).  ``kernel.*`` count the hand-written kernels'
   launches: a CUDA-graph capture takes back what it counted and each
   replay adds it again (`credit`), so a replayed step counts its kernels.
+  ``frame.captures`` and ``frame.replays`` count the serving frame's CUDA
+  graphs (`inference/wrapper.py::FrameGraph`): their ratio to ``frame``
+  calls is the share served by a replay.
 * `trace` and `StepTraceWindow`: a ``torch.profiler`` capture (CPU and
   CUDA activity) written as a Chrome trace that Perfetto or TensorBoard
   opens; ``Trainer`` opens a window on steps 5-15 of epoch 0 when
@@ -41,6 +44,8 @@ COUNTERS: Dict[str, int] = dict.fromkeys((
     "kernel.desc_loss_fwd",      # descriptor-loss forward launcher calls
     "kernel.desc_loss_bwd",      # descriptor-loss backward launcher calls
     "train.steps",               # optimizer steps the `Trainer` took
+    "frame.captures",            # frame programs captured in a CUDA graph
+    "frame.replays",             # `SuperPointFrontend.frame` calls served by a replay
     "spans.dropped",             # spans past `CAPACITY`
 ), 0)
 
