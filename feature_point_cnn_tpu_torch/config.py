@@ -11,6 +11,12 @@ purpose: ``stem_s2d`` (a TPU-only reparametrisation of the stem conv) and
 call, on the card as k replays of a CUDA graph of the step
 (`train/trainer.py`).
 
+``backbone`` picks the detector family the serving frontend builds (the
+ResNet SuperPoint or magicleap's VGG one, `models/vgg_superpoint.py`), and
+``matcher`` its keyframe match: mutual nearest neighbours
+(`ops/matching.py`) or SuperGlue (`models/superglue.py`), whose widths and
+operating point are the ``superglue`` section, `SuperGlueConfig`.
+
 The kernel gates take ``"auto"`` (the CUDA kernel for CUDA tensors, the
 plain PyTorch version otherwise), ``"on"`` or ``"off"``.  Unlike the JAX
 default, the fused decode kernel is on: its TPU measurement does not carry
@@ -22,6 +28,36 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SuperGlueConfig:
+    """SuperGlue's ``default_config`` (magicleap/SuperGluePretrainedNetwork,
+    ``models/superglue.py``; Sarlin et al., CVPR 2020) and the port's
+    precision split: the 1x1 convolutions, the attention and the MLPs run
+    in ``compute_dtype`` (accumulating in float32); the residual stream,
+    BatchNorm (eval, running statistics), the score matrix and the whole
+    Sinkhorn in float32."""
+
+    descriptor_dim: int = 256
+    keypoint_encoder: Tuple[int, ...] = (32, 64, 128, 256)
+    gnn_layers: Tuple[str, ...] = ("self", "cross") * 9
+    num_heads: int = 4
+    sinkhorn_iterations: int = 100
+    match_threshold: float = 0.2
+    bn_eps: float = 1e-5
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if set(self.gnn_layers) - {"self", "cross"}:
+            raise ValueError(f"GNN layers are 'self' or 'cross': {self.gnn_layers}")
+        if self.descriptor_dim % self.num_heads:
+            raise ValueError("descriptor_dim must be a multiple of num_heads")
+
+    def replace(self, **kw) -> "SuperGlueConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +88,13 @@ class SuperPointConfig:
     # --- model topology ---
     image_channels: int = 3
     descriptor_dim: int = 128
+    backbone: str = "resnet"          # "resnet" (models/superpoint.py) |
+                                      # "vgg" (models/vgg_superpoint.py)
+
+    # --- the serving frame's keyframe match ---
+    matcher: str = "mnn"              # "mnn" (ops/matching.py) | "superglue"
+                                      # (models/superglue.py)
+    superglue: SuperGlueConfig = SuperGlueConfig()
 
     # --- numerics: "bfloat16" runs the convolutions in bf16 with float32
     # parameters and BatchNorm statistics; "float32" is the parity path ---
@@ -113,6 +156,12 @@ class SuperPointConfig:
                 raise ValueError(f"{gate} must be 'auto', 'on' or 'off'")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.backbone not in ("resnet", "vgg"):
+            raise ValueError(f"unknown backbone {self.backbone!r}")
+        if self.matcher not in ("mnn", "superglue"):
+            raise ValueError(f"unknown matcher {self.matcher!r}")
+        if self.matcher == "superglue" and self.superglue.descriptor_dim != self.descriptor_dim:
+            raise ValueError("SuperGlue's descriptor_dim must be the detector's")
         if self.train_steps_per_call < 1:
             raise ValueError("train_steps_per_call must be >= 1")
 

@@ -22,10 +22,19 @@ The tracer's spans (`utils/profiling.py`) of a ``frame`` call: ``frame``
 (the root, with the batch size), ``frame.upload`` (the host-to-device
 copy), ``frame.prep``, and in `extract_fn` ``frame.forward``,
 ``frame.detect`` (decode, NMS, border, top-K) and ``frame.describe``,
-then ``frame.match`` (the top-n rows, the match, the packing).  On the
-card ``frame`` replays a CUDA graph of the frame program (`FrameGraph`):
-a replayed call records ``frame``, ``frame.upload`` and ``frame.replay``
-only, since the program's own spans run at its capture alone.
+then ``frame.match`` (the top-n rows, the match, the packing; with the
+SuperGlue matcher its spans ``superglue.encode``, ``.gnn`` and
+``.sinkhorn`` inside).  On the card ``frame`` replays a CUDA graph of the
+frame program (`FrameGraph`): a replayed call records ``frame``,
+``frame.upload`` and ``frame.replay`` only, since the program's own spans
+run at its capture alone.
+
+The frontend builds the detector that ``config.backbone`` names (the
+ResNet SuperPoint or magicleap's VGG SuperPoint, whose ``features`` give
+`extract_fn` the same layouts) and matches a frame against its keyframe
+by ``config.matcher``: mutual nearest neighbours, or SuperGlue
+(`models/superglue.py`), whose keyframe carries its keypoints too and
+whose frame gives a fifth output, each row's match score.
 """
 
 from __future__ import annotations
@@ -44,7 +53,9 @@ from torch import nn
 from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfig
 from feature_point_cnn_tpu_torch.device import resolve_device
 from feature_point_cnn_tpu_torch.models.fold import fold_batchnorm
+from feature_point_cnn_tpu_torch.models.superglue import SuperGlue
 from feature_point_cnn_tpu_torch.models.superpoint import SuperPoint
+from feature_point_cnn_tpu_torch.models.vgg_superpoint import VGGSuperPoint
 from feature_point_cnn_tpu_torch.ops.descriptors import sample_descriptors
 from feature_point_cnn_tpu_torch.ops.detection import (
     Keypoints,
@@ -64,7 +75,11 @@ from feature_point_cnn_tpu_torch.selflabel.adaptation import (
 )
 from feature_point_cnn_tpu_torch.utils import checkpoint as ckpt
 from feature_point_cnn_tpu_torch.utils import profiling
-from feature_point_cnn_tpu_torch.utils.weights import load_variables
+from feature_point_cnn_tpu_torch.utils.weights import (
+    load_variables,
+    load_weights,
+    vgg_state_dict_from_jax_variables,
+)
 
 
 def extract_fn(
@@ -139,11 +154,14 @@ def prep_images(images: torch.Tensor, channels: int) -> torch.Tensor:
     return images
 
 
-def load_state(weights_path: str) -> Tuple[int, Dict[str, torch.Tensor]]:
+def load_state(weights_path: str, backbone: str = "resnet"
+               ) -> Tuple[int, Dict[str, torch.Tensor]]:
     """``(step, state_dict)`` on the CPU from a ``.npz`` snapshot (step 0)
-    or from the newest ``ckpt_<step>.pt`` of a checkpoint directory (its
-    ``"model"`` entry)."""
+    of the ``backbone``'s JAX variables or from the newest
+    ``ckpt_<step>.pt`` of a checkpoint directory (its ``"model"`` entry)."""
     if str(weights_path).endswith(".npz"):
+        if backbone == "vgg":
+            return 0, vgg_state_dict_from_jax_variables(load_weights(weights_path))
         return 0, load_variables(weights_path, device="cpu")
     if not Path(weights_path).is_dir():
         raise FileNotFoundError(f"no .npz snapshot or checkpoint directory at "
@@ -155,7 +173,8 @@ def load_state(weights_path: str) -> Tuple[int, Dict[str, torch.Tensor]]:
 
 
 class SuperPointFrontend:
-    """Holds the model on one device; ``device=None`` means ``cuda``."""
+    """Holds the model, and the SuperGlue matcher where ``config.matcher``
+    asks for it, on one device; ``device=None`` means ``cuda``."""
 
     def __init__(
         self,
@@ -165,18 +184,26 @@ class SuperPointFrontend:
         device=None,
     ):
         """``weights_path``: a ``weights/*.npz`` snapshot or a checkpoint
-        directory (`load_state`); without one the weights are random, drawn
-        from ``seed``.  With ``config.fold_bn``
+        directory (`load_state`) of ``config.backbone``'s model; without one
+        the weights are random, drawn from ``seed``.  With ``config.fold_bn``
         the BatchNorms are folded into the convolutions here: snapshots
-        always keep the live-BN layout (`wrapper.py:117-121`)."""
+        always keep the live-BN layout (`wrapper.py:117-121`).  The
+        SuperGlue matcher's weights are random, drawn after the model's; its
+        parameters carry the published names, so ``self.matcher``'s
+        ``load_state_dict`` takes a published state dict."""
         self.config = config
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        # the fold reads float32 parameters, as the JAX fold does
-        live = SuperPoint(config.replace(fold_bn=False, compute_dtype=(
-            "float32" if config.fold_bn else config.compute_dtype)), generator=gen)
+        if config.backbone == "vgg":
+            if config.fold_bn:
+                raise ValueError("the VGG SuperPoint has no BatchNorm to fold")
+            live = VGGSuperPoint(config, generator=gen)
+        else:
+            # the fold reads float32 parameters, as the JAX fold does
+            live = SuperPoint(config.replace(fold_bn=False, compute_dtype=(
+                "float32" if config.fold_bn else config.compute_dtype)), generator=gen)
         if weights_path is not None:
-            step, state = load_state(weights_path)
+            step, state = load_state(weights_path, config.backbone)
             live.load_state_dict(state)
             if not str(weights_path).endswith(".npz"):
                 print(f"[frontend] loaded checkpoint step {step} from {weights_path}")
@@ -185,6 +212,9 @@ class SuperPointFrontend:
             model = SuperPoint(config, generator=torch.Generator())
             model.load_state_dict(fold_batchnorm(live.state_dict()))
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
+        self.matcher: Optional[SuperGlue] = None
+        if config.matcher == "superglue":
+            self.matcher = SuperGlue(config.superglue, generator=gen).to(self.device).eval()
         self._programs: Dict[Tuple[int, int], FrameProgram] = {}   # frame's, by (B, top_n)
         self._graphs: Dict[tuple, FrameGraph] = {}   # frame's, by `frame_signature`
 
@@ -252,35 +282,44 @@ class SuperPointFrontend:
         return [keypoints_to_numpy(kp, i) for i in range(images.shape[0])]
 
     @torch.inference_mode()
-    def frame(self, images, key_desc, key_num, top_n: int = 256):
+    def frame(self, images, key_desc, key_num, top_n: int = 256, key_kp=None):
         """The packed serving frame (`FrameProgram`, packed ABI): detect +
         describe + match every frame of the batch against one keyframe.
 
         ``images``: ``(B, H, W, C)`` uint8 (scaled by 1/255 here) or float in
         [0, 1], with C = 3 or 1 (gray, repeated to 3 channels here).
         ``key_desc``: ``(N, D)`` float16 keyframe descriptors, ``key_num``
-        its valid row count; N = ``min(top_n, max_keypoints)``.  Either may
-        be on the host.
+        its valid row count; N = ``min(top_n, max_keypoints)``.  With the
+        SuperGlue matcher also ``key_kp``, the keyframe's ``(N, 3)`` float32
+        ``[y, x, score]`` rows; the mnn matcher takes none.  Any may be on
+        the host.
 
         Returns ``(num_valid (B,) int32, kp_packed (B, N, 3) float32 [y, x,
         score], match_index (B, N) int32 (-1 = no match), desc16 (B, N, D)
-        float16)``, tensors the caller owns.  Keypoints are score-sorted, so
-        the first N rows are the top N.  Frame ``b``'s ``(desc16[b],
-        num_valid[b])`` is the next keyframe input.
+        float16)``, and with SuperGlue a fifth, ``match_score (B, N)``
+        float32 (`FrameProgram`), tensors the caller owns.  Keypoints are
+        score-sorted, so the first N rows are the top N.  Frame ``b``'s
+        ``(desc16[b], num_valid[b])``, with ``kp_packed[b]`` for SuperGlue,
+        is the next keyframe input.
 
         On the card, outside a width group, a call replays the CUDA graph
         of its `frame_signature` (`FrameGraph`), captured at the
         signature's first call; elsewhere the program runs eagerly.
         """
         b = len(images)
+        sg = self.config.matcher == "superglue"
+        if sg != (key_kp is not None):
+            raise ValueError("key_kp is the SuperGlue matcher's keyframe input, and "
+                             "only its")
         with profiling.span("frame", batch=b):
             images = _host_tensor(images)
             program = self._programs.get((b, top_n))
             if program is None:
-                program = FrameProgram(self.model, self.config, "packed", top_n, b)
+                program = FrameProgram(self.model, self.config, "packed", top_n, b,
+                                       matcher=self.matcher)
                 program = self._programs[(b, top_n)] = program.to(self.device)
             if self.device.type == "cuda" and spatial.split()[1] == 1:
-                sig = frame_signature(images, top_n)
+                sig = frame_signature(images, top_n, self.config.matcher)
                 graph = self._graphs.get(sig)
                 if graph is None:
                     graph = self._graphs[sig] = FrameGraph(program, images)
@@ -288,6 +327,8 @@ class SuperPointFrontend:
                     graph.image.copy_(images)
                 graph.key_desc.copy_(torch.as_tensor(key_desc))
                 graph.key_num.copy_(torch.as_tensor(key_num))
+                if sg:
+                    graph.key_kp.copy_(torch.as_tensor(key_kp))
                 if graph.graph is None:
                     graph.capture()
                 with profiling.span("frame.replay"):
@@ -295,9 +336,12 @@ class SuperPointFrontend:
             else:
                 with profiling.span("frame.upload"):
                     images = images.to(self.device)
-                key_desc = torch.as_tensor(key_desc, device=self.device)
-                key_num = torch.as_tensor(key_num, dtype=torch.int32, device=self.device)
-                out = program(images, key_desc, key_num)[:4]
+                keys = [torch.as_tensor(key_desc, device=self.device),
+                        torch.as_tensor(key_num, dtype=torch.int32, device=self.device)]
+                if sg:
+                    keys.append(torch.as_tensor(key_kp, dtype=torch.float32,
+                                                device=self.device))
+                out = program(images, *keys)[:program.outputs]
             return tuple(t[None] for t in out) if b == 1 else out
 
     def export_program(self, path: str, image_size: Tuple[int, int]) -> None:
@@ -335,6 +379,9 @@ class SuperPointFrontend:
             raise ValueError("batched export is packed-only")
         if input_dtype not in ("f32", "u8"):
             raise ValueError(f"input_dtype must be 'f32' or 'u8': {input_dtype!r}")
+        if cfg.matcher != "mnn":
+            raise ValueError("the exported frame program matches by mutual nearest "
+                             "neighbours only")
         cin = input_channels or cfg.image_channels
         if cin not in (1, cfg.image_channels):
             raise ValueError(f"input_channels must be 1 or {cfg.image_channels}")
@@ -441,22 +488,42 @@ class FrameProgram(nn.Module):
     rows, ``(num_valid, kp_packed [y, x, score], match_index (-1 = none),
     desc f16)``, unbatched at ``batch`` 1 and batched with ``(key_desc_out,
     key_num_out)``, frame 0's, after them otherwise.
+
+    With a SuperGlue ``matcher`` (packed only): ``forward(image, key_desc
+    (N, D) f16, key_num () int32, key_kp (N, 3) f32 [y, x, score])`` ->
+    ``(num_valid, kp_packed, match_index, desc16, match_score (N,) f32)``,
+    batched or not as above, with no keyframe outputs after them.  Each
+    frame is a pair with the keyframe: SuperGlue sees the frame's top ``n``
+    rows with their f16 descriptors, as the next call sees them as its
+    keyframe.  ``match_score`` is ``exp(max_j Z_ij)`` on every valid row
+    (0 on the others), before the mutual and threshold tests that
+    ``match_index`` keeps.  Frame ``b``'s ``(kp_packed[b], desc16[b],
+    num_valid[b])`` is the next keyframe.  ``outputs`` is the number of
+    outputs a caller keeps: 4, or 5 with SuperGlue.
     """
 
-    def __init__(self, model: SuperPoint, config: SuperPointConfig,
-                 abi: str = "packed", n: int = 256, batch: int = 1):
+    def __init__(self, model: nn.Module, config: SuperPointConfig,
+                 abi: str = "packed", n: int = 256, batch: int = 1,
+                 matcher: Optional[SuperGlue] = None):
         super().__init__()
         self.model, self.config, self.abi, self.batch = model, config, abi, batch
+        if matcher is not None and abi != "packed":
+            raise ValueError("SuperGlue matches in the packed ABI only")
+        self.matcher = matcher
+        self.outputs = 4 if matcher is None else 5
         n = config.max_keypoints if abi == "full" else min(n, config.max_keypoints)
         # the keyframe's row slots, for key_valid = slots < key_num
         self.register_buffer("slots", torch.arange(n), persistent=False)
 
-    def forward(self, image: torch.Tensor, key_desc: torch.Tensor, key: torch.Tensor):
+    def forward(self, image: torch.Tensor, key_desc: torch.Tensor, key: torch.Tensor,
+                key_kp: Optional[torch.Tensor] = None):
         cfg = self.config
         with profiling.span("frame.prep"):
             image = prep_images(image, cfg.image_channels)
         kp, desc = extract_fn(self.model, image, cfg)
         with profiling.span("frame.match"):
+            if self.matcher is not None:
+                return self._superglue(image.shape[1:3], kp, desc, key_desc, key, key_kp)
             if self.abi == "full":
                 m = mnn_match(desc[0], kp.valid[0], key_desc, key, max_l2_dist=cfg.nn_thresh)
                 return kp.y[0], kp.x[0], kp.score[0], kp.valid[0], m.index, m.valid, desc[0]
@@ -476,6 +543,21 @@ class FrameProgram(nn.Module):
                 return num_valid[0], packed[0], match_index[0], desc16[0]
             return num_valid, packed, match_index, desc16, desc16[0], num_valid[0]
 
+    def _superglue(self, image_size, kp, desc, key_desc, key_num, key_kp):
+        """Each frame's top ``n`` rows against the keyframe, by SuperGlue."""
+        n, b = self.slots.shape[0], kp.y.shape[0]
+        valid = kp.valid[:, :n]
+        packed = torch.stack([kp.y[:, :n], kp.x[:, :n], kp.score[:, :n]], dim=-1)
+        desc16 = torch.where(valid[..., None], desc[:, :n], 0.0).to(torch.float16)
+        num_valid = valid.sum(-1, dtype=torch.int32)
+        index, score = self.matcher(
+            packed, desc16, num_valid, key_kp.expand(b, -1, -1),
+            key_desc.expand(b, -1, -1), key_num.expand(b), tuple(image_size))
+        match_index = index.to(torch.int32)
+        if self.batch == 1:
+            return num_valid[0], packed[0], match_index[0], desc16[0], score[0]
+        return num_valid, packed, match_index, desc16, score
+
 
 def _host_tensor(images) -> torch.Tensor:
     """An image batch as a tensor, left where it is."""
@@ -484,25 +566,27 @@ def _host_tensor(images) -> torch.Tensor:
     return torch.from_numpy(np.asarray(images))
 
 
-def frame_signature(images: torch.Tensor, top_n: int) -> tuple:
-    """``(B, H, W, C, image dtype, top_n)``: what a `FrameGraph` is captured
-    for.  The keyframe's shape and dtype follow from it (``(N, D)``
-    float16, N from ``top_n``)."""
-    return (*images.shape, images.dtype, top_n)
+def frame_signature(images: torch.Tensor, top_n: int, matcher: str = "mnn") -> tuple:
+    """``(B, H, W, C, image dtype, top_n, matcher)``: what a `FrameGraph` is
+    captured for.  The keyframe's shapes and dtypes follow from it (``(N,
+    D)`` float16, and ``(N, 3)`` float32 keypoints for SuperGlue, N from
+    ``top_n``)."""
+    return (*images.shape, images.dtype, top_n, matcher)
 
 
 class FrameGraph:
     """One CUDA graph of a packed `FrameProgram` at one `frame_signature`.
 
     It owns static inputs, the ``image`` buffer, ``key_desc (N, D)``
-    float16 and ``key_num ()`` int32, which a call fills before `replay`,
+    float16 and ``key_num ()`` int32 (and ``key_kp (N, 3)`` float32 for
+    SuperGlue), which a call fills before `replay`,
     and the graph's outputs in its private memory pool, which `replay`
     clones, so what a call returns stays the caller's after the next one.
     `capture` runs the program eagerly twice on a side stream first, as
     ``Trainer._capture`` does (cuDNN and cuBLAS handles, the kernels'
     libraries, cached constants), then captures it.  The hand-written
-    kernels launch inside the graph; the ``kernel.*`` counts of the
-    capture are taken back and credited at each replay.
+    kernels launch inside the graph; the ``kernel.*`` and ``superglue.*``
+    counts of the capture are taken back and credited at each replay.
     """
 
     def __init__(self, program: FrameProgram, images: torch.Tensor):
@@ -512,11 +596,15 @@ class FrameGraph:
         self.key_desc = torch.empty((program.slots.shape[0], program.config.descriptor_dim),
                                     dtype=torch.float16, device=device)
         self.key_num = torch.empty((), dtype=torch.int32, device=device)
+        self.inputs = [self.image, self.key_desc, self.key_num]
+        if program.matcher is not None:
+            self.key_kp = torch.empty((program.slots.shape[0], 3), device=device)
+            self.inputs.append(self.key_kp)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
 
     def capture(self) -> None:
         """Warm up and capture, on the filled static inputs."""
-        inputs = (self.image, self.key_desc, self.key_num)
+        inputs = self.inputs
         with torch.cuda.device(self.image.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -527,16 +615,16 @@ class FrameGraph:
             graph = torch.cuda.CUDAGraph()
             before = profiling.counters()
             with torch.cuda.graph(graph):
-                self.outputs = self.program(*inputs)[:4]
+                self.outputs = self.program(*inputs)[:self.program.outputs]
         # the capture ran nothing: what it counted is credited at each replay
         self.counts = {k: v for k, v in profiling.counted_since(before).items()
-                       if k.startswith("kernel.")}
+                       if k.startswith(("kernel.", "superglue."))}
         profiling.credit(self.counts, -1)
         profiling.count("frame.captures")
         self.graph = graph
 
     def replay(self) -> Tuple[torch.Tensor, ...]:
-        """The program on the static inputs: clones of its four outputs."""
+        """The program on the static inputs: clones of its outputs."""
         self.graph.replay()
         out = tuple(t.clone() for t in self.outputs)
         profiling.credit(self.counts)

@@ -68,7 +68,12 @@ class VGGSuperPoint(nn.Module):
                 m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
                 m.bias.zero_()
 
-    def forward(self, image: torch.Tensor):
+    def features(self, image: torch.Tensor, enable_descriptor: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(B, H, W, 1)`` image -> ``(logits (B, Hc, Wc, 65), desc (B, Hc,
+        Wc, D))``, float32, the descriptor L2-normalised: the ResNet model's
+        contract, which `inference/wrapper.py::extract_fn` calls.  Without
+        the descriptor head the descriptors are zeros."""
         x = image.permute(0, 3, 1, 2).to(self.compute_dtype)
         last = len(ENCODER_DIMS) - 1
         for i in range(len(ENCODER_DIMS)):
@@ -81,10 +86,16 @@ class VGGSuperPoint(nn.Module):
                     x = nn.functional.max_pool2d(x, 2, 2)
         point = torch.relu(self.detector_conv_a(x))
         logits = self.detector_conv_b(point).float().permute(0, 2, 3, 1)
+        if not enable_descriptor:
+            b, hc, wc, _ = logits.shape
+            return logits, logits.new_zeros((b, hc, wc, self.config.descriptor_dim))
         desc = torch.relu(self.descriptor_conv_a(x))
         desc = self.descriptor_conv_b(desc).float().permute(0, 2, 3, 1)
         norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
-        desc = desc / norm.clamp_min(1e-12)
+        return logits, desc / norm.clamp_min(1e-12)
+
+    def forward(self, image: torch.Tensor):
+        logits, desc = self.features(image)
         return decode_prob_map(logits, self.config.cell), desc, logits
 
 

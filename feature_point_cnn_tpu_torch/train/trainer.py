@@ -233,9 +233,9 @@ class Trainer:
             raise ValueError("a CUDA graph of the step cannot hold gradient "
                              "accumulation (its update depends on a host "
                              "counter); use train_steps_per_call=1")
-        L = self.train_loader
-        self._static_idx = torch.arange(L.batch_size, dtype=torch.int32,
-                                        device=self.device)
+        # this rank's rows of the global batch: the loader's index arrays
+        self._static_idx = torch.arange(self.train_loader.local_batch_size,
+                                        dtype=torch.int32, device=self.device)
         tensors = self._state_tensors()
         saved = [t.detach().clone() for t in tensors]
         step0 = self.state.step

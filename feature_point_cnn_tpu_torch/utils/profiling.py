@@ -18,7 +18,9 @@
   replay adds it again (`credit`), so a replayed step counts its kernels.
   ``frame.captures`` and ``frame.replays`` count the serving frame's CUDA
   graphs (`inference/wrapper.py::FrameGraph`): their ratio to ``frame``
-  calls is the share served by a replay.
+  calls is the share served by a replay.  ``superglue.pairs`` and
+  ``superglue.sinkhorn_iters`` count SuperGlue's pairs and its Sinkhorn
+  iterations times the pairs; a replay credits them too.
 * `trace` and `StepTraceWindow`: a ``torch.profiler`` capture (CPU and
   CUDA activity) written as a Chrome trace that Perfetto or TensorBoard
   opens; ``Trainer`` opens a window on steps 5-15 of epoch 0 when
@@ -46,6 +48,8 @@ COUNTERS: Dict[str, int] = dict.fromkeys((
     "train.steps",               # optimizer steps the `Trainer` took
     "frame.captures",            # frame programs captured in a CUDA graph
     "frame.replays",             # `SuperPointFrontend.frame` calls served by a replay
+    "superglue.pairs",           # pairs SuperGlue matched (`models/superglue.py`)
+    "superglue.sinkhorn_iters",  # its Sinkhorn iterations, times the pairs
     "spans.dropped",             # spans past `CAPACITY`
 ), 0)
 
