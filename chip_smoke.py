@@ -179,7 +179,14 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    self-test, then 200 frames of ``--source synthetic`` (pipeline depths
    1, 2, 4) and of a replay of a panned scene for the B = 1 and B = 8
    packages: the replay's ``exec`` lines equal Python's run of the package
-   (`replay_exec_lines`).
+   (`replay_exec_lines`);
+15. SuperGlue's Sinkhorn kernel (`sinkhorn_phase`): a SuperGlue at the
+   published widths on 32 pairs of 1024 keypoints calls it once a call;
+   on its scores the kernel equals the plain loop (the same -inf entries,
+   no NaN, max|dZ| <= 1e-5 of max|Z|) on full and ragged pairs; a trace
+   shows 2 * 100 + 1 launches a call; its device time beside its bounds
+   (the couplings read once an iteration; two exponentials an entry an
+   iteration) and the plain loop's time.
 
 The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
 and under ``b32`` at B = 32, the kernel's device time from a trace
@@ -2838,6 +2845,123 @@ def finish_native_compile(proc: subprocess.Popen, name: str, work: Path) -> floa
                            if line.startswith('{"export_compile_s"')))["export_compile_s"]
 
 
+SG_PAIRS, SG_KEYPOINTS = 32, 1024   # phase 15: the benchmark's SuperGlue batch
+EXP_PER_S = 16 * 132 * 1.98e9       # H100 SXM: 16 exponentials a clock an SM, 132 SMs
+SINKHORN_KERNELS = ("band_kernel", "column_kernel", "output_kernel")
+
+
+def transport_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Checks a Sinkhorn kernel's Z against the plain loop's: the same
+    shape and -inf entries, no NaN, finite entries within 1e-5 of the
+    largest finite magnitude (float32 summation order over 100
+    iterations); returns the largest gap over that magnitude."""
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+    check(not bool(got.isnan().any()), f"{what}: no NaN")
+    check(torch.equal(got == float("-inf"), want == float("-inf")),
+          f"{what}: the same -inf entries")
+    finite = want.isfinite()
+    check(torch.equal(got.isfinite(), finite), f"{what}: the same finite entries")
+    if not finite.any():
+        return 0.0
+    rel = float((got[finite] - want[finite]).abs().max() / want[finite].abs().max())
+    check(rel <= 1e-5, f"{what}: max|dZ| {rel:.3g} of max|Z| <= 1e-5")
+    return rel
+
+
+def sinkhorn_phase(seed: int, card: str) -> dict:
+    """Phase 15: SuperGlue's Sinkhorn kernel at the benchmark's shape, on
+    the scores of a SuperGlue at the published widths (seeded weights, 32
+    pairs of 1024 random keypoints): one wrapper call a SuperGlue call,
+    the kernel against the plain loop on full and ragged pairs, its device
+    time beside its two bounds and the plain loop's time.  Returns the
+    ``kernels`` line's row."""
+    import torch.nn.functional as F
+
+    from feature_point_cnn_tpu_torch.config import SuperGlueConfig
+    from feature_point_cnn_tpu_torch.models import superglue
+    from feature_point_cnn_tpu_torch.ops.kernels import sinkhorn
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    sg = superglue.SuperGlue(SuperGlueConfig(), generator=g).to(dev).eval()
+    b, n = SG_PAIRS, SG_KEYPOINTS
+
+    def side():
+        kp = torch.stack([torch.rand(b, n, generator=g) * (H - 1),
+                          torch.rand(b, n, generator=g) * (W - 1),
+                          torch.rand(b, n, generator=g)], -1)
+        desc = F.normalize(torch.randn(b, n, 256, generator=g), dim=-1)
+        return kp.to(dev), desc.half().to(dev)
+
+    (kp0, d0), (kp1, d1) = side(), side()
+    num = torch.full((b,), n, dtype=torch.int32, device=dev)
+    seen, real = [], superglue.log_optimal_transport
+
+    def capture(*args):
+        seen.append(args)
+        return real(*args)
+
+    superglue.log_optimal_transport = capture
+    try:
+        with torch.inference_mode():
+            before = profiling.counters()
+            for _ in range(2):
+                sg(kp0, d0, num, kp1, d1, num, (H, W))
+            torch.cuda.synchronize()
+            gained = profiling.counted_since(before)
+    finally:
+        superglue.log_optimal_transport = real
+    check(gained.get("kernel.sinkhorn") == 2, f"one Sinkhorn kernel call a SuperGlue call: {gained}")
+    scores, alpha, valid0, valid1, iters = seen[0]
+    m = scores.shape[2]
+    # ragged pairs on the same scores: 0, 1, ragged and full counts
+    counts = torch.tensor([n] * 16 + [1000, 731, 1, 0] * 4, device=dev)
+    ragged = (torch.arange(n, device=dev) < counts[:, None],
+              torch.arange(m, device=dev) < counts.flip(0)[:, None])
+    with torch.inference_mode():
+        errs = {}
+        for what, (v0, v1) in (("full", (valid0, valid1)), ("ragged", ragged)):
+            got = sinkhorn.log_optimal_transport(scores, alpha, v0, v1, iters)
+            want = sinkhorn.log_optimal_transport_plain(scores, alpha, v0, v1, iters)
+            errs[what] = transport_close(got, want, f"sinkhorn {what} {tuple(scores.shape)}")
+        del got, want
+
+        def kernel():
+            sinkhorn.log_optimal_transport(scores, alpha, valid0, valid1, iters)
+
+        def plain():
+            sinkhorn.log_optimal_transport_plain(scores, alpha, valid0, valid1, iters)
+
+        ms = event_ms(kernel, 10, warmup=2)
+        plain_ms = event_ms(plain, 3, warmup=1)
+        ops = trace_device(kernel, calls=2, named=SINKHORN_KERNELS)
+    mine = {k: (n_, ms_) for k, (n_, ms_) in ops.items()
+            if any(s in k for s in SINKHORN_KERNELS)}
+    launches = {s: int(sum(n_ for k, (n_, _) in mine.items() if s in k))
+                for s in SINKHORN_KERNELS}
+    check(launches == {"band_kernel": iters, "column_kernel": iters, "output_kernel": 1},
+          f"sinkhorn: 2 * iters + 1 kernel launches a call, got {launches}")
+    device_ms = sum(n_ * ms_ for n_, ms_ in mine.values())
+    entries = b * (n + 1) * (m + 1)
+    bytes_ms = 1e3 * iters * 4 * entries / HBM_BYTES_PER_S
+    exp_ms = 1e3 * 2 * iters * entries / EXP_PER_S
+    check(device_ms >= max(bytes_ms, exp_ms), "sinkhorn: device time not under its bound")
+    row = dict(
+        name="sinkhorn", route="cuda", source="feature_point_cnn_tpu_torch/csrc/sinkhorn.cu",
+        replaces=None, launches=gained["kernel.sinkhorn"] // 2, shape=[b, n, m],
+        iterations=iters, cuda_launches_per_call=launches,
+        device_ms=device_ms, ms=ms, plain_ms=plain_ms, bound_ms=bytes_ms,
+        bound_by="bytes: the couplings read once an iteration", bound_exp_ms=exp_ms,
+        bound_share=bytes_ms / device_ms, max_rel_err=errs,
+        by_kernel_ms={k: n_ * ms_ for k, (n_, ms_) in mine.items()},
+        other_ops_per_call=sum(n_ for k, (n_, _) in ops.items() if k not in mine))
+    print(f"kernel sinkhorn {row['shape']} x {iters}: device {device_ms:.3f} ms, events "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms ({plain_ms / ms:.1f}x); bounds "
+          f"{bytes_ms:.3f} ms bytes ({row['bound_share']:.1%}), {exp_ms:.3f} ms exps; "
+          f"max|dZ|/max|Z| {errs} [{card}]")
+    return row
+
+
 def native_phase(seed: int, card: str, fe, work: Path, packed_s: float) -> dict:
     """Phase 14: the frame program exported as AOTInductor packages on the
     card and held to the eager `frame`, and the native host built and run.
@@ -3703,6 +3827,9 @@ def main(argv=None) -> int:
         # this process (keyframe and 8 frames); the host's are its own
         r["launches_native"] = na["launches"][r["name"]]
     print(json.dumps({"phase14": {k: v for k, v in na.items() if k != "launches"}}))
+    # ---- 15. SuperGlue's Sinkhorn kernel ----------------------------------
+    rows.append(sinkhorn_phase(args.seed, card))
+    print(f"[phase 15 done at {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,9 @@ published interleave's.
 Precision (`config.SuperGlueConfig`): the 1x1 convolutions, the attention
 and the MLPs' products run in ``compute_dtype``; the residual stream,
 BatchNorm (eval: running statistics), the score matrix and the whole
-Sinkhorn in float32.
+Sinkhorn in float32.  The Sinkhorn is `ops/kernels/sinkhorn.py`'s: a
+hand-written CUDA kernel on the card, the plain loop on the CPU; it is
+called through this module's ``log_optimal_transport`` name.
 
 The tracer's spans inside a call: ``superglue.encode`` (the keypoint
 encoder), ``superglue.gnn`` and ``superglue.sinkhorn`` (the score matrix,
@@ -55,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from feature_point_cnn_tpu_torch.config import SuperGlueConfig
+from feature_point_cnn_tpu_torch.ops.kernels.sinkhorn import log_optimal_transport
 from feature_point_cnn_tpu_torch.utils import profiling
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -241,7 +244,6 @@ class SuperGlue(nn.Module):
                                          cfg.sinkhorn_iterations)
 
 
-
 def assign(z: torch.Tensor, num0: torch.Tensor, threshold: float
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``Z`` -> ``(index (B, N) int64, -1 = none; score (B, N) float32)``:
@@ -259,30 +261,3 @@ def assign(z: torch.Tensor, num0: torch.Tensor, threshold: float
     score = torch.where(valid0, best0.exp(), 0.0)
     keep = valid0 & mutual & (score > threshold)
     return torch.where(keep, index0, -1), score
-
-
-def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor,
-                          valid0: torch.Tensor, valid1: torch.Tensor,
-                          iters: int) -> torch.Tensor:
-    """The published ``log_optimal_transport`` of ``(B, N, M)`` float32
-    ``scores`` with the dustbin score ``alpha``, each pair over its own
-    valid rows ``valid0 (B, N)`` and columns ``valid1 (B, M)``: padded rows
-    and columns get the marginal -inf, their potentials start at -inf, and
-    they read -inf in the result.  A side with no valid rows counts as one
-    row in the marginals, so nothing is -inf - -inf; no output reads it."""
-    b, n, m = scores.shape
-    couplings = torch.cat([
-        torch.cat([scores, alpha.expand(b, n, 1)], 2),
-        alpha.expand(b, 1, m + 1)], 1)
-    rows, cols = valid0.sum(1).float(), valid1.sum(1).float()
-    norm = -torch.log((rows + cols).clamp_min(1.0))
-    neg = float("-inf")
-    log_mu = torch.cat([torch.where(valid0, norm[:, None], neg),
-                        (torch.log(cols.clamp_min(1.0)) + norm)[:, None]], 1)
-    log_nu = torch.cat([torch.where(valid1, norm[:, None], neg),
-                        (torch.log(rows.clamp_min(1.0)) + norm)[:, None]], 1)
-    v = torch.cat([torch.where(valid1, 0.0, neg), torch.zeros_like(norm)[:, None]], 1)
-    for _ in range(iters):
-        u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
-        v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
-    return couplings + u[:, :, None] + v[:, None, :] - norm[:, None, None]

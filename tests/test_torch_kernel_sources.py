@@ -13,7 +13,10 @@ card, checked on the CPU against the sources' text.
   scratch holds whole 16-byte pieces and whole
   tiles (the bulk copies' unit), and the dynamic shared memory that the
   source's own formulas ask for fits an SM's 227 KB (too much shows on the
-  card only as a failed launch).
+  card only as a failed launch);
+- the Sinkhorn wrapper's band layout follows `csrc/sinkhorn.cu`: columns a
+  thread and rows a band for every M, the registers a thread holds, and
+  the dynamic shared memory at the band height for N, M up to 2048.
 """
 
 import ctypes
@@ -23,10 +26,10 @@ from pathlib import Path
 import pytest
 
 from feature_point_cnn_tpu_torch.ops.kernels import CSRC, SOURCES
-from feature_point_cnn_tpu_torch.ops.kernels import decode, descriptor_loss, nms
+from feature_point_cnn_tpu_torch.ops.kernels import decode, descriptor_loss, nms, sinkhorn
 
 WRAPPERS = {"decode_threshold": decode, "grid_nms": nms,
-            "descriptor_loss": descriptor_loss}
+            "descriptor_loss": descriptor_loss, "sinkhorn": sinkhorn}
 PROTOTYPE = re.compile(r'extern\s+"C"\s+\w+\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
 
 
@@ -192,3 +195,54 @@ def test_decode_cell_rows_follow_the_source():
         # a segment's logits are whole 16 B runs when they arrive by bulk copy
         if lay["bulk"]:
             assert seg * 65 * 4 % 16 == 0 and k["kSegCells"] % 4 == 0
+
+
+def _sinkhorn_source():
+    text = (CSRC / "sinkhorn.cu").read_text()
+    return text, {k: _constant(text, k) for k in
+                  ("kThreads", "kSlots", "kMaxCols", "kBlocksPerSm")}
+
+
+def test_sinkhorn_layout_follows_the_source():
+    text, k = _sinkhorn_source()
+    assert sinkhorn._THREADS == k["kThreads"] and sinkhorn._SLOTS == k["kSlots"]
+    assert sinkhorn._MAX_COLS == k["kMaxCols"]
+    assert sinkhorn.MAX_COLUMNS == k["kThreads"] * k["kMaxCols"]
+    # the source's rule for a thread's columns and a band's rows
+    assert "while (kThreads * cols < m) cols *= 2;" in text
+    assert "constexpr int kRows = kSlots / COLS;" in text
+    assert "const int bands = (n + 1 + kRows - 1) / kRows;" in text
+    assert "m > kThreads * kMaxCols" in text
+    # every layout the wrapper can ask for has its instantiation
+    for cols in (1, 2, 4, 8, 16):
+        assert f"case {cols}: return run<{cols}>(" in text
+    m = re.search(r"size_t band_smem_bytes\(int rows\) \{\s*return (.*?);", text, re.S)
+    expr = m.group(1).replace("static_cast<size_t>", "")
+    env = dict(k, kWarps=k["kThreads"] // 32)
+    for n in (0, 1, 15, 16, 100, 1023, 1024, 1025, 2047, 2048):
+        for mm in (0, 1, 9, 256, 257, 300, 1000, 1024, 1025, 1600, 2047, 2048):
+            cols, rows = sinkhorn.band_layout(mm)
+            assert cols * k["kThreads"] >= mm and (cols == 1 or (cols // 2) * k["kThreads"] < mm)
+            assert cols <= k["kMaxCols"] and cols * rows == k["kSlots"]
+            bands = -(-(n + 1) // rows)
+            assert (bands - 1) * rows < n + 1 <= bands * rows
+            smem = eval(f"({expr})", {"__builtins__": {}}, dict(env, rows=rows))
+            # the blocks an SM holds, within 227 KB, and each under the 48 KB
+            # a launch may take without the opt-in attribute
+            assert smem <= 48 * 1024 and k["kBlocksPerSm"] * smem <= 232448
+    assert sinkhorn.band_layout(1024) == (4, 8)       # the benchmark's shape
+    assert eval(f"({expr})", {"__builtins__": {}}, dict(env, rows=8)) == 576
+    assert sinkhorn.band_layout(sinkhorn.MAX_COLUMNS) == (16, 2)
+    # three blocks an SM, as the source's launch bounds ask
+    assert "__launch_bounds__(kThreads, kBlocksPerSm)" in text
+
+
+def test_sinkhorn_source_has_no_host_round_trip():
+    """The launcher queues its 2 * iters + 1 launches and returns: no
+    synchronise, no copy, no allocation (the wrapper's scratch lives in a
+    captured graph's pool)."""
+    text = (CSRC / "sinkhorn.cu").read_text()
+    for call in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+                 "cudaMalloc"):
+        assert call not in text, call
+    assert text.count("<<<") == 3

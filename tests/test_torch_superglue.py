@@ -4,8 +4,12 @@ SuperGlue mode, held to the plain reference `tests/plain_superglue.py`
 published widths (D = 256, 4 heads, 18 layers, encoder 32-64-128-256) on
 a few keypoints, with seeded random weights and BatchNorm statistics.
 
-This file imports neither JAX nor the JAX package.  The ``cuda`` case
-runs on the card:
+The Sinkhorn kernel (`ops/kernels/sinkhorn.py`) is held to the plain loop:
+its band schedule emulated on the CPU, the kernel itself on the card at
+the benchmark's (32, 1024, 1024) and at small ragged shapes.
+
+This file imports neither JAX nor the JAX package.  The ``cuda`` cases
+run on the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_superglue.py -q
 """
@@ -18,14 +22,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import shifted_pair
+from chip_smoke import shifted_pair, transport_close
 from feature_point_cnn_tpu_torch.config import SuperGlueConfig, SuperPointConfig
 from feature_point_cnn_tpu_torch.inference.wrapper import (
     FrameProgram,
     SuperPointFrontend,
     frame_signature,
 )
-from feature_point_cnn_tpu_torch.models.superglue import SuperGlue
+from feature_point_cnn_tpu_torch.models.superglue import SuperGlue, assign
+from feature_point_cnn_tpu_torch.ops import kernels
+from feature_point_cnn_tpu_torch.ops.kernels import sinkhorn
 from feature_point_cnn_tpu_torch.utils import profiling
 from tests.plain_superglue import match_pair
 
@@ -341,3 +347,141 @@ def test_graph_replay_credits_superglue_counts():
     assert gained["frame.replays"] == len(frames)
     assert gained["superglue.pairs"] == 2 * len(frames)
     assert gained["superglue.sinkhorn_iters"] == 2 * len(frames) * iters
+    assert gained["kernel.sinkhorn"] == len(frames)
+
+
+# (B, N, M, valid rows, valid columns): ragged sides, N != M, 0, 1, ragged and
+# full counts on both sides, empty sides, bands of padded rows only (N = 200
+# with 3 valid), and every columns-a-thread layout of the kernel (M = 9 ...
+# 4096: 1, 2, 4, 8 and 16 columns a thread)
+RAGGED = [
+    (4, 16, 20, (0, 1, 7, 16), (20, 0, 13, 1)),
+    (3, 37, 300, (37, 5, 0), (300, 257, 1)),
+    (2, 200, 9, (200, 3), (9, 9)),
+    (2, 70, 1000, (70, 33), (1000, 999)),
+    (2, 33, 1600, (33, 1), (1600, 1024)),
+    (1, 5, 4096, (5,), (4096,)),
+    (1, 0, 7, (0,), (7,)),
+    (1, 6, 0, (6,), (0,)),
+]
+
+
+def _transport_inputs(b, n, m, num0, num1, device, seed=0):
+    """Scores at SuperGlue's scale with random weights (a background of
+    sd 4, each of the first min(N, M) rows planted at +15 on a column of
+    a random permutation), ``bin_score`` 1, prefix masks."""
+    g = torch.Generator().manual_seed(seed)
+    scores = 4 * torch.randn(b, n, m, generator=g)
+    k = min(n, m)
+    if k:
+        cols = torch.stack([torch.randperm(m, generator=g)[:k] for _ in range(b)])
+        scores[:, :k].scatter_add_(2, cols[:, :, None], torch.full((b, k, 1), 15.0))
+    valid0 = torch.arange(n) < torch.tensor(num0)[:, None]
+    valid1 = torch.arange(m) < torch.tensor(num1)[:, None]
+    return (scores.to(device), torch.tensor(1.0, device=device), valid0.to(device),
+            valid1.to(device))
+
+
+def _lse(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.logsumexp``'s arithmetic, written out: the max, 0 where it is
+    infinite, then log(sum(exp(x - max))) + max."""
+    mx = x.amax(dim, keepdim=True)
+    sh = torch.where(mx.isinf(), 0.0, mx)
+    return (x - sh).exp().sum(dim).log() + sh.squeeze(dim)
+
+
+def _band_schedule(scores, alpha, valid0, valid1, iters):
+    """The kernel's schedule in plain float32: u from whole rows; each band
+    of `band_layout`'s rows (the last padded past the dustbin with rows at
+    u = -inf) takes its columns' logsumexp, and the bands' partials fold
+    into v; Z from the last u and v."""
+    b, n, m = scores.shape
+    rows = sinkhorn.band_layout(m)[1]
+    bands = -(-(n + 1) // rows)
+    c = torch.cat([torch.cat([scores, alpha.expand(b, n, 1)], 2),
+                   alpha.expand(b, 1, m + 1)], 1)
+    pad = bands * rows - (n + 1)
+    c_pad = torch.cat([c, c.new_zeros(b, pad, m + 1)], 1)
+    norm, log_mu, log_nu, v = sinkhorn.marginals(valid0, valid1)
+    log_mu_pad = torch.cat([log_mu, log_mu.new_full((b, pad), float("-inf"))], 1)
+    for _ in range(iters):
+        u = log_mu_pad - _lse(c_pad + v[:, None, :], 2)
+        partial = _lse((c_pad + u[:, :, None]).view(b, bands, rows, m + 1), 2)
+        v = log_nu - _lse(partial, 1)
+    return c + u[:, :n + 1, None] + v[:, None, :] - norm[:, None, None]
+
+
+def _assert_same_matches(got, want, num0, threshold=0.2):
+    """`assign`'s indices agree on every valid row, but where the plain Z
+    leaves the choice within the tolerance: its row's or a column's top
+    two entries, or its best and log(threshold)."""
+    tol = 1e-5 * float(want[want.isfinite()].abs().max())
+    i_got, _ = assign(got, num0, threshold)
+    i_want, _ = assign(want, num0, threshold)
+    core = want[:, :-1, :-1]
+    for b, i in (i_got != i_want).nonzero().tolist():
+        row = core[b, i]
+        near = abs(float(row.max()) - float(np.log(threshold))) <= tol
+        if row.numel() > 1:
+            top = row.topk(2).values
+            near |= float(top[0] - top[1]) <= tol
+        for j in {int(i_got[b, i]), int(i_want[b, i]), int(row.argmax())} - {-1}:
+            if core.shape[1] > 1:
+                top = core[b, :, j].topk(2).values
+                near |= float(top[0] - top[1]) <= tol
+        assert near, (b, i, int(i_got[b, i]), int(i_want[b, i]))
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=lambda c: "x".join(map(str, c[:3])))
+def test_band_schedule_equals_the_plain_loop(case):
+    """The kernel's decomposition (row logsumexps, band partials of the
+    column logsumexps folded over the bands, shifts at 0 where a band holds
+    only padded rows) gives the plain loop's Z, to
+    `chip_smoke.transport_close`'s tolerance."""
+    args = _transport_inputs(*case, "cpu")
+    want = sinkhorn.log_optimal_transport_plain(*args, 100)
+    transport_close(_band_schedule(*args, 100), want, str(case[:3]))
+
+
+def test_cpu_transport_never_loads_the_kernel(monkeypatch):
+    """On the CPU `superglue.log_optimal_transport` is the plain loop: no
+    library is loaded (on a card, earlier tests may have loaded it) and
+    ``kernel.sinkhorn`` stays where it was."""
+    from feature_point_cnn_tpu_torch.models import superglue
+
+    def refuse(name, signatures):
+        raise AssertionError(f"{name} loaded on the CPU")
+
+    monkeypatch.setattr(sinkhorn, "load_library", refuse)
+    args = _transport_inputs(*RAGGED[0], "cpu")
+    before, libs = profiling.counters(), dict(kernels._libs)
+    z = superglue.log_optimal_transport(*args, 100)
+    assert "kernel.sinkhorn" not in profiling.counted_since(before)
+    assert kernels._libs == libs
+    assert torch.equal(z, sinkhorn.log_optimal_transport_plain(*args, 100))
+
+
+# the benchmark's shape: 16 full pairs, then ragged, single and empty sides
+CELL = (32, 1024, 1024, (1024,) * 16 + (1000, 731, 1, 0) * 4,
+        (1024,) * 16 + (999, 0, 512, 1) * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CELL] + RAGGED, ids=lambda c: "x".join(map(str, c[:3])))
+@torch.inference_mode()
+def test_sinkhorn_kernel_equals_the_plain_loop(case):
+    """The kernel against the plain loop on the same card inputs, 100
+    iterations: `chip_smoke.transport_close`, `assign`'s indices equal but at
+    near ties, one ``kernel.sinkhorn`` a call, and the same bits again on
+    a second call."""
+    device = _device("cuda")
+    args = _transport_inputs(*case, device)
+    want = sinkhorn.log_optimal_transport_plain(*args, 100)
+    before = profiling.counters()
+    got = sinkhorn.log_optimal_transport(*args, 100)
+    torch.cuda.synchronize()
+    assert profiling.counted_since(before) == {"kernel.sinkhorn": 1}
+    transport_close(got, want, str(case[:3]))
+    if min(case[1], case[2]):     # `assign` takes no empty side
+        _assert_same_matches(got, want, args[2].sum(1))
+    assert torch.equal(sinkhorn.log_optimal_transport(*args, 100), got)
