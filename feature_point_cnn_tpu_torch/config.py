@@ -17,10 +17,9 @@ ResNet SuperPoint or magicleap's VGG one, `models/vgg_superpoint.py`), and
 (`ops/matching.py`) or SuperGlue (`models/superglue.py`), whose widths and
 operating point are the ``superglue`` section, `SuperGlueConfig`.
 
-The kernel gates take ``"auto"`` (the CUDA kernel for CUDA tensors, the
-plain PyTorch version otherwise), ``"on"`` or ``"off"``.  Unlike the JAX
-default, the fused decode kernel is on: its TPU measurement does not carry
-over to the H100.
+No field picks between a hand-written kernel and its plain version, as
+the JAX package's ``use_pallas_*`` fields do: the tensor's device picks
+(`ops/kernels/`).
 """
 
 from __future__ import annotations
@@ -72,14 +71,7 @@ class SuperPointConfig:
     subpixel_refine: bool = False     # log-parabola refinement on the raw
                                       # prob map (ops/detection.py)
     nms_iters: int = 0                # 0 = suppression rounds to convergence
-                                      # (exact greedy); >0 = that many rounds
-    use_cuda_decode: str = "auto"     # fused decode+threshold kernel
-                                      # (ops/kernels/decode.py)
-    use_cuda_nms: str = "auto"        # exact-greedy NMS kernel
-                                      # (ops/kernels/nms.py)
-    use_cuda_desc_loss: str = "auto"  # hinge descriptor loss kernels, forward
-                                      # and backward, no (B, N, N) in device
-                                      # memory (ops/kernels/descriptor_loss.py)
+                                      # (exact greedy); >0 = that many (CPU)
     fold_bn: bool = False             # serving topology: BatchNorms folded
                                       # into conv weight + bias at load
                                       # (models/fold.py); training always
@@ -151,9 +143,6 @@ class SuperPointConfig:
     data_axis: str = "data"           # the data mesh's axis (parallel/mesh.py)
 
     def __post_init__(self):
-        for gate in ("use_cuda_decode", "use_cuda_nms", "use_cuda_desc_loss"):
-            if getattr(self, gate) not in ("auto", "on", "off"):
-                raise ValueError(f"{gate} must be 'auto', 'on' or 'off'")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.backbone not in ("resnet", "vgg"):

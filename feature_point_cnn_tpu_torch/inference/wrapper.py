@@ -3,12 +3,13 @@
 Port of `feature_point_cnn_tpu/inference/wrapper.py`: `extract_fn`
 (`:33-66`), `adaptation_fn` (`:69-74`), `SuperPointFrontend.extract`/`run`/
 `run_with_homography_adaptation` (`:134-199`), and the frame program of
-``export_pjrt`` (input prep `:298-307`, full ABI `:311-323`, packed
-`:351-387`) as the module `FrameProgram`, which `SuperPointFrontend.frame`
-calls eagerly.  `export_program` and `export_native` are ``export_stablehlo``
-and ``export_pjrt`` (`:203-440`): `torch.export` of the extract program, and
-an AOTInductor package of the frame program with JAX's ``meta.json`` for the
-native host (`inference/native.py`, `csrc/serve/`).  `load_state` is `load_variables`
+``export_pjrt`` (prep `:298-307`, packed `:351-387`) as the batched module
+`FrameProgram`, which `SuperPointFrontend.frame` serves.  `export_program`
+and `export_native` are ``export_stablehlo`` and ``export_pjrt``
+(`:203-440`): `torch.export` of the extract program, and an AOTInductor
+package of the frame program in JAX's ABIs (`FullExport`, `PackedExport`)
+with JAX's ``meta.json``, for the native host (`inference/native.py`,
+`csrc/serve/`).  `load_state` is `load_variables`
 (`:77-95`): weights come from a ``weights/*.npz`` snapshot or from a
 directory of the port's checkpoints (`utils/checkpoint.py`); the JAX
 package's orbax directories need orbax, and with it JAX, so the port does
@@ -31,10 +32,10 @@ run at its capture alone.
 
 The frontend builds the detector that ``config.backbone`` names (the
 ResNet SuperPoint or magicleap's VGG SuperPoint, whose ``features`` give
-`extract_fn` the same layouts) and matches a frame against its keyframe
-by ``config.matcher``: mutual nearest neighbours, or SuperGlue
-(`models/superglue.py`), whose keyframe carries its keypoints too and
-whose frame gives a fifth output, each row's match score.
+`extract_fn` the same layouts) and the matcher ``config.matcher`` names
+(`ops/matching.py::MnnMatcher`, `models/superglue.py`), which declares
+its keyframe tensors (``keyframe``) and its outputs beyond the frame's four
+(``extra_outputs``): nothing else here knows a matcher by name.
 """
 
 from __future__ import annotations
@@ -65,9 +66,8 @@ from feature_point_cnn_tpu_torch.ops.detection import (
     keypoints_to_numpy,
     refine_keypoints,
 )
-from feature_point_cnn_tpu_torch.ops.kernels import use_kernel
 from feature_point_cnn_tpu_torch.ops.kernels.decode import decode_threshold_cuda
-from feature_point_cnn_tpu_torch.ops.matching import mnn_match
+from feature_point_cnn_tpu_torch.ops.matching import FrameRows, MnnMatcher, mnn_match
 from feature_point_cnn_tpu_torch.parallel import spatial
 from feature_point_cnn_tpu_torch.selflabel.adaptation import (
     Generators,
@@ -87,8 +87,9 @@ def extract_fn(
 ) -> Tuple[Keypoints, torch.Tensor]:
     """Forward -> decode -> NMS -> top-K -> descriptor sampling.
 
-    With the decode kernel on, the thresholded map comes straight from the
-    logits and the raw prob map is decoded only for subpixel refinement.
+    The thresholded map comes straight from the logits (the decode kernel
+    on the card), and the raw prob map is decoded only for subpixel
+    refinement.
     Under a width group ``images`` is this rank's block of columns, and
     every rank returns the whole image's keypoints and descriptors, as JAX
     computes them on a W-sharded input: the forward and the decode run on
@@ -101,19 +102,13 @@ def extract_fn(
     with profiling.span("frame.forward"):
         logits, desc_map = model.features(images)
     with profiling.span("frame.detect"):
-        prob = None
-        if use_kernel(config.use_cuda_decode, logits):
-            scores = spatial.gather_width(
-                decode_threshold_cuda(logits, config.cell, config.confidence_thresh), 2)
-            kp = extract_keypoints_from_scores(scores, config)
-        else:
-            prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
-            kp = extract_keypoints(prob, config)
+        scores = spatial.gather_width(
+            decode_threshold_cuda(logits, config.cell, config.confidence_thresh), 2)
+        kp = extract_keypoints_from_scores(scores, config)
         if config.subpixel_refine:
             # refine on the RAW prob map: the thresholded map zeroes
             # sub-threshold neighbours and would bias the fit
-            if prob is None:
-                prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
+            prob = spatial.gather_width(decode_prob_map(logits, config.cell), 2)
             kp = refine_keypoints(prob, kp)
     with profiling.span("frame.describe"):
         return kp, sample_descriptors(desc_map, kp, h, w)
@@ -121,14 +116,12 @@ def extract_fn(
 
 def adaptation_prob_fn(model: SuperPoint, config: SuperPointConfig):
     """The probability map adaptation aggregates: ``(M, H, W, 3)`` images
-    -> ``(M, H, W)``, through the decode kernel where its gate is on."""
+    -> ``(M, H, W)``, through the decode kernel on the card."""
     def prob_fn(x: torch.Tensor) -> torch.Tensor:
         logits, _ = model.features(x, enable_descriptor=False)
-        if use_kernel(config.use_cuda_decode, logits):
-            # threshold 0 keeps every probability (where(p >= 0, p, 0) = p),
-            # so the kernel returns the raw decoded map
-            return decode_threshold_cuda(logits, config.cell, 0.0)
-        return decode_prob_map(logits, config.cell)
+        # threshold 0 keeps every probability (where(p >= 0, p, 0) = p), so
+        # the decode returns the raw map
+        return decode_threshold_cuda(logits, config.cell, 0.0)
 
     return prob_fn
 
@@ -173,8 +166,8 @@ def load_state(weights_path: str, backbone: str = "resnet"
 
 
 class SuperPointFrontend:
-    """Holds the model, and the SuperGlue matcher where ``config.matcher``
-    asks for it, on one device; ``device=None`` means ``cuda``."""
+    """Holds the model and the frame's matcher on one device;
+    ``device=None`` means ``cuda``."""
 
     def __init__(
         self,
@@ -212,10 +205,10 @@ class SuperPointFrontend:
             model = SuperPoint(config, generator=torch.Generator())
             model.load_state_dict(fold_batchnorm(live.state_dict()))
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
-        self.matcher: Optional[SuperGlue] = None
-        if config.matcher == "superglue":
-            self.matcher = SuperGlue(config.superglue, generator=gen).to(self.device).eval()
-        self._programs: Dict[Tuple[int, int], FrameProgram] = {}   # frame's, by (B, top_n)
+        self.matcher = (SuperGlue(config.superglue, generator=gen) if config.matcher == "superglue"
+                        else MnnMatcher(config.max_keypoints, config.nn_thresh)
+                        ).to(self.device).eval()
+        self._programs: Dict[int, FrameProgram] = {}   # frame's, by top_n
         self._graphs: Dict[tuple, FrameGraph] = {}   # frame's, by `frame_signature`
 
     def _images(self, images) -> torch.Tensor:
@@ -283,8 +276,8 @@ class SuperPointFrontend:
 
     @torch.inference_mode()
     def frame(self, images, key_desc, key_num, top_n: int = 256, key_kp=None):
-        """The packed serving frame (`FrameProgram`, packed ABI): detect +
-        describe + match every frame of the batch against one keyframe.
+        """The serving frame (`FrameProgram`): detect + describe + match
+        every frame of the batch against one keyframe.
 
         ``images``: ``(B, H, W, C)`` uint8 (scaled by 1/255 here) or float in
         [0, 1], with C = 3 or 1 (gray, repeated to 3 channels here).
@@ -306,43 +299,33 @@ class SuperPointFrontend:
         of its `frame_signature` (`FrameGraph`), captured at the
         signature's first call; elsewhere the program runs eagerly.
         """
-        b = len(images)
-        sg = self.config.matcher == "superglue"
-        if sg != (key_kp is not None):
-            raise ValueError("key_kp is the SuperGlue matcher's keyframe input, and "
-                             "only its")
-        with profiling.span("frame", batch=b):
+        key = (key_desc, key_num) if key_kp is None else (key_desc, key_num, key_kp)
+        with profiling.span("frame", batch=len(images)):
             images = _host_tensor(images)
-            program = self._programs.get((b, top_n))
+            program = self._programs.get(top_n)
             if program is None:
-                program = FrameProgram(self.model, self.config, "packed", top_n, b,
-                                       matcher=self.matcher)
-                program = self._programs[(b, top_n)] = program.to(self.device)
+                program = self._programs[top_n] = FrameProgram(self.model, self.config, top_n,
+                                                                self.matcher)
+            if len(key) != len(program.keyframe):
+                raise ValueError(f"the {self.config.matcher} matcher's keyframe is "
+                                 f"{[name for name, _, _ in program.keyframe]}")
             if self.device.type == "cuda" and spatial.split()[1] == 1:
-                sig = frame_signature(images, top_n, self.config.matcher)
+                sig = frame_signature(images, top_n)
                 graph = self._graphs.get(sig)
                 if graph is None:
-                    graph = self._graphs[sig] = FrameGraph(program, images)
+                    graph = self._graphs[sig] = FrameGraph(program, images, self.device)
                 with profiling.span("frame.upload"):
                     graph.image.copy_(images)
-                graph.key_desc.copy_(torch.as_tensor(key_desc))
-                graph.key_num.copy_(torch.as_tensor(key_num))
-                if sg:
-                    graph.key_kp.copy_(torch.as_tensor(key_kp))
+                for static, t in zip(graph.key, key):
+                    static.copy_(torch.as_tensor(t))
                 if graph.graph is None:
                     graph.capture()
                 with profiling.span("frame.replay"):
-                    out = graph.replay()
-            else:
-                with profiling.span("frame.upload"):
-                    images = images.to(self.device)
-                keys = [torch.as_tensor(key_desc, device=self.device),
-                        torch.as_tensor(key_num, dtype=torch.int32, device=self.device)]
-                if sg:
-                    keys.append(torch.as_tensor(key_kp, dtype=torch.float32,
-                                                device=self.device))
-                out = program(images, *keys)[:program.outputs]
-            return tuple(t[None] for t in out) if b == 1 else out
+                    return graph.replay()
+            with profiling.span("frame.upload"):
+                images = images.to(self.device)
+            return program(images, *(torch.as_tensor(t, dtype=dtype, device=self.device)
+                                     for t, (_, _, dtype) in zip(key, program.keyframe)))
 
     def export_program(self, path: str, image_size: Tuple[int, int]) -> None:
         """`torch.export.save` of the extract program at ``(1, H, W, C)``
@@ -366,10 +349,10 @@ class SuperPointFrontend:
         input_dtype: str = "f32",
         input_channels: Optional[int] = None,
     ):
-        """``(ExportedProgram, meta)``: `torch.export` of `FrameProgram` on
-        the frontend's device, and its ``meta.json`` (JAX's keys, spec names
-        and dtype strings, `wrapper.py:226-440`).  The arguments and their
-        checks are ``export_pjrt``'s."""
+        """``(ExportedProgram, meta)``: `torch.export` of `FullExport` or
+        `PackedExport` on the frontend's device, and its ``meta.json`` (JAX's
+        keys, spec names and dtype strings, `wrapper.py:226-440`) with the
+        export's own specs.  The arguments and checks are ``export_pjrt``'s."""
         h, w = image_size
         cfg = self.config
         k, d = cfg.max_keypoints, cfg.descriptor_dim
@@ -379,43 +362,30 @@ class SuperPointFrontend:
             raise ValueError("batched export is packed-only")
         if input_dtype not in ("f32", "u8"):
             raise ValueError(f"input_dtype must be 'f32' or 'u8': {input_dtype!r}")
-        if cfg.matcher != "mnn":
-            raise ValueError("the exported frame program matches by mutual nearest "
-                             "neighbours only")
+        if not isinstance(self.matcher, MnnMatcher):
+            raise ValueError("the native host serves the frame matched by mutual nearest "
+                             "neighbours alone")
         cin = input_channels or cfg.image_channels
         if cin not in (1, cfg.image_channels):
             raise ValueError(f"input_channels must be 1 or {cfg.image_channels}")
         n = min(top_n or 256, k)
-        image_spec = {"name": "image", "shape": [batch, h, w, cin], "dtype": input_dtype}
         if abi == "full":
-            inputs = [image_spec,
-                      {"name": "key_desc", "shape": [k, d], "dtype": "f32"},
-                      {"name": "key_valid", "shape": [k], "dtype": "pred"}]
-            outputs = [{"name": name, "shape": shape, "dtype": dtype} for name, shape, dtype in (
-                ("y", [k], "f32"), ("x", [k], "f32"), ("score", [k], "f32"),
-                ("valid", [k], "pred"), ("match_index", [k], "s32"),
-                ("match_valid", [k], "pred"), ("desc", [k, d], "f32"))]
+            program = FullExport(self.model, cfg)
         else:
-            inputs = [image_spec,
-                      {"name": "key_desc", "shape": [n, d], "dtype": "f16"},
-                      {"name": "key_num", "shape": [], "dtype": "s32"}]
-            lead = [] if batch == 1 else [batch]
-            outputs = [{"name": "num_valid", "shape": lead, "dtype": "s32"},
-                       {"name": "kp_packed", "shape": lead + [n, 3], "dtype": "f32"},
-                       {"name": "match_index", "shape": lead + [n], "dtype": "s32"},
-                       {"name": "desc", "shape": lead + [n, d], "dtype": "f16"}]
-            if batch > 1:
-                outputs += [{"name": "key_desc_out", "shape": [n, d], "dtype": "f16"},
-                            {"name": "key_num_out", "shape": [], "dtype": "s32"}]
-        program = FrameProgram(self.model, cfg, abi, n, batch).to(self.device).eval()
-        example = tuple(torch.zeros(s["shape"], dtype=DTYPES[s["dtype"]], device=self.device)
-                        for s in inputs)
+            program = PackedExport(FrameProgram(self.model, cfg, n, self.matcher), batch)
+        inputs = (("image", (batch, h, w, cin), DTYPES[input_dtype]),) + program.keyframe
+        example = tuple(torch.zeros(shape, dtype=dtype, device=self.device)
+                        for _, shape, dtype in inputs)
         with torch.no_grad():
-            ep = torch.export.export(program, example)
+            ep = torch.export.export(program.eval(), example)
+        # the graph's last node is its output: one traced value an output
+        results = [node.meta["val"] for node in list(ep.graph.nodes)[-1].args[0]]
         meta = {
             "abi": abi, "batch": batch, "image_size": [h, w], "channels": cin,
             "input_dtype": input_dtype, "max_keypoints": k, "top_n": n,
-            "descriptor_dim": d, "inputs": inputs, "outputs": outputs,
+            "descriptor_dim": d, "inputs": _specs(inputs),
+            "outputs": _specs((name, t.shape, t.dtype)
+                              for name, t in zip(program.outputs, results)),
         }
         return ep, meta
 
@@ -477,86 +447,86 @@ class ExtractProgram(nn.Module):
 
 
 class FrameProgram(nn.Module):
-    """``export_pjrt``'s ``frame_fn`` (JAX `wrapper.py:298-387`): prep the
-    ABI image on the device (u8 -> float32 / 255, gray -> the model's
-    channels), extract, and match against a fed-back keyframe.
+    """The serving frame (JAX `wrapper.py:298-387`): prep the image batch
+    (u8 -> float32 / 255, gray -> the model's channels), extract, and match
+    each frame's top ``n = min(top_n, max_keypoints)`` rows against a
+    keyframe by ``matcher``, whose tensors ``keyframe`` declares, ``(name,
+    shape, dtype)`` each.  ``forward(image (B, H, W, C), *keyframe)`` ->
+    ``(num_valid (B,) int32, kp_packed (B, n, 3) float32 [y, x, score],
+    match_index (B, n) int32 (-1 = none), desc16 (B, n, D) float16)``, then
+    the matcher's ``extra_outputs``."""
 
-    ``abi="full"`` (``batch`` 1): ``forward(image, key_desc (K, D) f32,
-    key_valid (K,) bool) -> (y, x, score, valid, match_index, match_valid,
-    desc)`` of the one frame, K wide.  ``abi="packed"``: ``forward(image,
-    key_desc (N, D) f16, key_num () int32)`` -> the top ``n`` score-sorted
-    rows, ``(num_valid, kp_packed [y, x, score], match_index (-1 = none),
-    desc f16)``, unbatched at ``batch`` 1 and batched with ``(key_desc_out,
-    key_num_out)``, frame 0's, after them otherwise.
-
-    With a SuperGlue ``matcher`` (packed only): ``forward(image, key_desc
-    (N, D) f16, key_num () int32, key_kp (N, 3) f32 [y, x, score])`` ->
-    ``(num_valid, kp_packed, match_index, desc16, match_score (N,) f32)``,
-    batched or not as above, with no keyframe outputs after them.  Each
-    frame is a pair with the keyframe: SuperGlue sees the frame's top ``n``
-    rows with their f16 descriptors, as the next call sees them as its
-    keyframe.  ``match_score`` is ``exp(max_j Z_ij)`` on every valid row
-    (0 on the others), before the mutual and threshold tests that
-    ``match_index`` keeps.  Frame ``b``'s ``(kp_packed[b], desc16[b],
-    num_valid[b])`` is the next keyframe.  ``outputs`` is the number of
-    outputs a caller keeps: 4, or 5 with SuperGlue.
-    """
-
-    def __init__(self, model: nn.Module, config: SuperPointConfig,
-                 abi: str = "packed", n: int = 256, batch: int = 1,
-                 matcher: Optional[SuperGlue] = None):
+    def __init__(self, model: nn.Module, config: SuperPointConfig, top_n: int,
+                 matcher: nn.Module):
         super().__init__()
-        self.model, self.config, self.abi, self.batch = model, config, abi, batch
-        if matcher is not None and abi != "packed":
-            raise ValueError("SuperGlue matches in the packed ABI only")
-        self.matcher = matcher
-        self.outputs = 4 if matcher is None else 5
-        n = config.max_keypoints if abi == "full" else min(n, config.max_keypoints)
-        # the keyframe's row slots, for key_valid = slots < key_num
-        self.register_buffer("slots", torch.arange(n), persistent=False)
+        self.model, self.config, self.matcher = model, config, matcher
+        self.n = min(top_n, config.max_keypoints)
+        self.keyframe = matcher.keyframe(self.n, config.descriptor_dim)
 
-    def forward(self, image: torch.Tensor, key_desc: torch.Tensor, key: torch.Tensor,
-                key_kp: Optional[torch.Tensor] = None):
-        cfg = self.config
+    def forward(self, image: torch.Tensor, *key: torch.Tensor):
+        cfg, n = self.config, self.n
         with profiling.span("frame.prep"):
             image = prep_images(image, cfg.image_channels)
         kp, desc = extract_fn(self.model, image, cfg)
         with profiling.span("frame.match"):
-            if self.matcher is not None:
-                return self._superglue(image.shape[1:3], kp, desc, key_desc, key, key_kp)
-            if self.abi == "full":
-                m = mnn_match(desc[0], kp.valid[0], key_desc, key, max_l2_dist=cfg.nn_thresh)
-                return kp.y[0], kp.x[0], kp.score[0], kp.valid[0], m.index, m.valid, desc[0]
-            n = self.slots.shape[0]
             # keypoints are score-sorted, so the first n rows are the top n
-            y, x = kp.y[:, :n], kp.x[:, :n]
-            score, valid = kp.score[:, :n], kp.valid[:, :n]
+            valid = kp.valid[:, :n]
             desc_n = torch.where(valid[..., None], desc[:, :n], 0.0)
-            m = mnn_match(desc_n, valid, key_desc.float(), self.slots < key,
-                          max_l2_dist=cfg.nn_thresh)
-            num_valid = valid.sum(-1, dtype=torch.int32)
-            # coordinates stay float32 (f16 spacing is 0.5 px beyond x = 512)
-            packed = torch.stack([y, x, score], dim=-1)
-            match_index = torch.where(m.valid, m.index, -1).to(torch.int32)
-            desc16 = desc_n.to(torch.float16)
-            if self.batch == 1:
-                return num_valid[0], packed[0], match_index[0], desc16[0]
-            return num_valid, packed, match_index, desc16, desc16[0], num_valid[0]
+            rows = FrameRows(
+                valid=valid,
+                # coordinates stay float32 (f16 spacing is 0.5 px beyond x = 512)
+                packed=torch.stack([kp.y[:, :n], kp.x[:, :n], kp.score[:, :n]], dim=-1),
+                desc=desc_n, desc16=desc_n.to(torch.float16),
+                num_valid=valid.sum(-1, dtype=torch.int32))
+            match_index, *extra = self.matcher.match_frame(rows, key, image.shape[1:3])
+            return (rows.num_valid, rows.packed, match_index, rows.desc16, *extra)
 
-    def _superglue(self, image_size, kp, desc, key_desc, key_num, key_kp):
-        """Each frame's top ``n`` rows against the keyframe, by SuperGlue."""
-        n, b = self.slots.shape[0], kp.y.shape[0]
-        valid = kp.valid[:, :n]
-        packed = torch.stack([kp.y[:, :n], kp.x[:, :n], kp.score[:, :n]], dim=-1)
-        desc16 = torch.where(valid[..., None], desc[:, :n], 0.0).to(torch.float16)
-        num_valid = valid.sum(-1, dtype=torch.int32)
-        index, score = self.matcher(
-            packed, desc16, num_valid, key_kp.expand(b, -1, -1),
-            key_desc.expand(b, -1, -1), key_num.expand(b), tuple(image_size))
-        match_index = index.to(torch.int32)
+
+class PackedExport(nn.Module):
+    """JAX's packed ABI (`wrapper.py:351-387`) over an mnn `FrameProgram`:
+    its four outputs, unbatched at ``batch`` 1, else batched and followed by
+    frame 0's ``(desc16, num_valid)`` as ``(key_desc_out, key_num_out)``."""
+
+    def __init__(self, program: FrameProgram, batch: int):
+        super().__init__()
+        self.program, self.batch, self.keyframe = program, batch, program.keyframe
+        self.outputs = ("num_valid", "kp_packed", "match_index", "desc",
+                        *program.matcher.extra_outputs) + (
+            ("key_desc_out", "key_num_out") if batch > 1 else ())
+
+    def forward(self, image: torch.Tensor, key_desc: torch.Tensor, key_num: torch.Tensor):
+        out = self.program(image, key_desc, key_num)
         if self.batch == 1:
-            return num_valid[0], packed[0], match_index[0], desc16[0], score[0]
-        return num_valid, packed, match_index, desc16, score
+            return tuple(t[0] for t in out)
+        return (*out, out[3][0], out[0][0])   # frame 0's (desc16, num_valid)
+
+
+class FullExport(nn.Module):
+    """JAX's full ABI (``export_pjrt``, `wrapper.py:311-323`), one frame K
+    wide: ``forward(image (1, H, W, C), key_desc (K, D) f32, key_valid (K,)
+    bool) -> (y, x, score, valid, match_index, match_valid, desc)``,
+    matched by mutual nearest neighbours."""
+
+    outputs = ("y", "x", "score", "valid", "match_index", "match_valid", "desc")
+
+    def __init__(self, model: nn.Module, config: SuperPointConfig):
+        super().__init__()
+        self.model, self.config = model, config
+        k, d = config.max_keypoints, config.descriptor_dim
+        self.keyframe = (("key_desc", (k, d), torch.float32), ("key_valid", (k,), torch.bool))
+
+    def forward(self, image: torch.Tensor, key_desc: torch.Tensor, key_valid: torch.Tensor):
+        cfg = self.config
+        kp, desc = extract_fn(self.model, prep_images(image, cfg.image_channels), cfg)
+        m = mnn_match(desc[0], kp.valid[0], key_desc, key_valid, max_l2_dist=cfg.nn_thresh)
+        return kp.y[0], kp.x[0], kp.score[0], kp.valid[0], m.index, m.valid, desc[0]
+
+
+def _specs(entries) -> List[dict]:
+    """``meta.json`` specs of ``(name, shape, dtype)`` entries."""
+    names = {dtype: name for name, dtype in DTYPES.items()}
+    return [{"name": name, "shape": list(shape), "dtype": names[dtype]}
+            for name, shape, dtype in entries]
 
 
 def _host_tensor(images) -> torch.Tensor:
@@ -566,45 +536,38 @@ def _host_tensor(images) -> torch.Tensor:
     return torch.from_numpy(np.asarray(images))
 
 
-def frame_signature(images: torch.Tensor, top_n: int, matcher: str = "mnn") -> tuple:
-    """``(B, H, W, C, image dtype, top_n, matcher)``: what a `FrameGraph` is
-    captured for.  The keyframe's shapes and dtypes follow from it (``(N,
-    D)`` float16, and ``(N, 3)`` float32 keypoints for SuperGlue, N from
-    ``top_n``)."""
-    return (*images.shape, images.dtype, top_n, matcher)
+def frame_signature(images: torch.Tensor, top_n: int) -> tuple:
+    """``(B, H, W, C, image dtype, top_n)``: what a `FrameGraph` is
+    captured for.  The keyframe's shapes and dtypes follow from it and the
+    frontend's matcher (`FrameProgram.keyframe`)."""
+    return (*images.shape, images.dtype, top_n)
 
 
 class FrameGraph:
-    """One CUDA graph of a packed `FrameProgram` at one `frame_signature`.
+    """One CUDA graph of a `FrameProgram` at one `frame_signature`.
 
-    It owns static inputs, the ``image`` buffer, ``key_desc (N, D)``
-    float16 and ``key_num ()`` int32 (and ``key_kp (N, 3)`` float32 for
-    SuperGlue), which a call fills before `replay`,
-    and the graph's outputs in its private memory pool, which `replay`
-    clones, so what a call returns stays the caller's after the next one.
-    `capture` runs the program eagerly twice on a side stream first, as
-    ``Trainer._capture`` does (cuDNN and cuBLAS handles, the kernels'
-    libraries, cached constants), then captures it.  The hand-written
-    kernels launch inside the graph; the ``kernel.*`` and ``superglue.*``
-    counts of the capture are taken back and credited at each replay.
+    It owns static inputs, the ``image`` buffer and ``key``, one buffer
+    for each tensor of the program's keyframe, which a call fills before
+    `replay`, and the graph's outputs in its private memory pool, which
+    `replay` clones, so what a call returns stays the caller's after the
+    next one.  `capture` runs the program eagerly twice on a side stream
+    first, as ``Trainer._capture`` does (cuDNN and cuBLAS handles, the
+    kernels' libraries, cached constants), then captures it.  The
+    hand-written kernels launch inside the graph; the ``kernel.*`` and
+    ``superglue.*`` counts of the capture are taken back and credited at
+    each replay.
     """
 
-    def __init__(self, program: FrameProgram, images: torch.Tensor):
-        device = program.slots.device
+    def __init__(self, program: FrameProgram, images: torch.Tensor, device: torch.device):
         self.program = program
         self.image = torch.empty(images.shape, dtype=images.dtype, device=device)
-        self.key_desc = torch.empty((program.slots.shape[0], program.config.descriptor_dim),
-                                    dtype=torch.float16, device=device)
-        self.key_num = torch.empty((), dtype=torch.int32, device=device)
-        self.inputs = [self.image, self.key_desc, self.key_num]
-        if program.matcher is not None:
-            self.key_kp = torch.empty((program.slots.shape[0], 3), device=device)
-            self.inputs.append(self.key_kp)
+        self.key = [torch.empty(shape, dtype=dtype, device=device)
+                    for _, shape, dtype in program.keyframe]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
 
     def capture(self) -> None:
         """Warm up and capture, on the filled static inputs."""
-        inputs = self.inputs
+        inputs = (self.image, *self.key)
         with torch.cuda.device(self.image.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -615,7 +578,7 @@ class FrameGraph:
             graph = torch.cuda.CUDAGraph()
             before = profiling.counters()
             with torch.cuda.graph(graph):
-                self.outputs = self.program(*inputs)[:self.program.outputs]
+                self.outputs = self.program(*inputs)
         # the capture ran nothing: what it counted is credited at each replay
         self.counts = {k: v for k, v in profiling.counted_since(before).items()
                        if k.startswith(("kernel.", "superglue."))}

@@ -154,7 +154,13 @@ class SuperGlue(nn.Module):
     ``image_size = (H, W)`` frame; ``desc*``: ``(B, N|M, D)`` unit
     descriptors (any float type); ``num*``: ``(B,)`` valid rows, the first
     ones of each side.  ``Z``: ``(B, N+1, M+1)`` float32 log assignment
-    with the dustbins last, -inf at padded rows and columns."""
+    with the dustbins last, -inf at padded rows and columns.
+
+    The serving frame's matcher (`match_frame`) pairs each frame's top n
+    rows, f16 descriptors as the next call's keyframe, with the keyframe
+    (`keyframe`), and gives ``match_score``, `assign`'s score."""
+
+    extra_outputs: Tuple[str, ...] = ("match_score",)
 
     def __init__(self, config: SuperGlueConfig = SuperGlueConfig(),
                  generator: Optional[torch.Generator] = None):
@@ -199,6 +205,20 @@ class SuperGlue(nn.Module):
         v = split(_linear(attn.proj[2], src, dtype, rows=order))
         msg = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask[:, None, None, :])
         return _linear(attn.merge, msg.transpose(1, 2).reshape(b, n, c), dtype, cols=order)
+
+    @staticmethod
+    def keyframe(n: int, d: int) -> tuple:
+        """The keyframe's tensors, ``(name, shape, dtype)`` each."""
+        return (("key_desc", (n, d), torch.float16), ("key_num", (), torch.int32),
+                ("key_kp", (n, 3), torch.float32))
+
+    def match_frame(self, rows, key: tuple, image_size) -> tuple:
+        """``(match_index (B, N) int32, match_score (B, N))`` of `FrameRows`."""
+        key_desc, key_num, key_kp = key
+        b = rows.packed.shape[0]
+        index, score = self(rows.packed, rows.desc16, rows.num_valid, key_kp.expand(b, -1, -1),
+                            key_desc.expand(b, -1, -1), key_num.expand(b), tuple(image_size))
+        return index.to(torch.int32), score
 
     def forward(self, kp0, desc0, num0, kp1, desc1, num1,
                 image_size: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:

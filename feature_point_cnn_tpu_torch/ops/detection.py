@@ -16,7 +16,6 @@ import torch
 import torch.nn.functional as F
 
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
-from feature_point_cnn_tpu_torch.ops.kernels import use_kernel
 from feature_point_cnn_tpu_torch.ops.kernels.nms import (
     grid_nms_cuda,
     nms_priority_key,
@@ -84,14 +83,11 @@ def extract_keypoints_from_scores(
     """NMS + border strip + top-K on an already-thresholded score map
     (the whole map: a W-sharded extract gathers it first)."""
     b, h, w = scores.shape
-    if use_kernel(config.use_cuda_nms, scores):
-        scores = grid_nms_cuda(scores, config.nms_dist)
-        exact_nms = True
-    else:
-        scores = grid_nms(scores, config.nms_dist, config.nms_iters)
-        # truncated suppression may leave closer-than-radius survivors,
-        # which voids the block-max reduction below
-        exact_nms = config.nms_iters == 0
+    scores = grid_nms_cuda(scores, config.nms_dist, config.nms_iters)
+    # truncated suppression may leave closer-than-radius survivors, which
+    # voids the block-max reduction below; the kernel (a CUDA tensor)
+    # always runs to convergence
+    exact_nms = config.nms_iters == 0 or scores.is_cuda
 
     br = config.border_remove
     ys = torch.arange(h, device=scores.device)

@@ -7,6 +7,10 @@ source and the flags, so an edited source rebuilds) and loaded with
 ``ctypes``.  A failed build or load raises: no wrapper falls back to its
 plain PyTorch version for a CUDA tensor.  Nothing here runs at import
 time, so the CPU tests can import every module without ``nvcc``.
+
+Each kernel's entry point, and nothing else, picks by the tensor's device:
+the kernel for a CUDA tensor, the plain version called directly for a CPU
+one, so that a CPU export holds no ``fpc`` op (`csrc/serve/fpc_ops.cc`).
 """
 
 from __future__ import annotations
@@ -88,16 +92,6 @@ def load_library(
             getattr(lib, fn).argtypes = list(argtypes)
         _libs[name] = lib
     return lib
-
-
-def use_kernel(mode: str, x: torch.Tensor) -> bool:
-    """A config gate: ``"on"``, ``"off"``, or ``"auto"`` (on for CUDA
-    tensors)."""
-    if mode == "auto":
-        return x.is_cuda
-    if mode not in ("on", "off"):
-        raise ValueError(f"kernel gate must be 'auto', 'on' or 'off': {mode!r}")
-    return mode == "on"
 
 
 def check_launch(err: int, what: str) -> None:

@@ -10,10 +10,10 @@ takes the softmax there, and the thresholded (8, cells*8) tile leaves as 8
 contiguous output rows.  The softmax never reaches device memory.
 
 Plain version: `softmax65` + `restore_prob_map` + threshold.  The wrapper
-calls the custom op ``fpc::decode_threshold``, whose CPU implementation is
-the plain version and whose CUDA implementation launches the kernel or
-raises; `torch.export` keeps the op in the graph, so an exported program
-reaches the kernel as eager code does.
+takes it for a CPU tensor; for a CUDA one it calls the custom op
+``fpc::decode_threshold``, which launches the kernel or raises.
+`torch.export` keeps the op in the graph, so an exported program reaches
+the kernel as eager code does.
 """
 
 from __future__ import annotations
@@ -70,17 +70,12 @@ SCHEMA = "(Tensor logits, int cell, float threshold) -> Tensor"
 
 
 @torch.library.custom_op("fpc::decode_threshold", mutates_args=(),
-                         device_types="cpu", schema=SCHEMA)
+                         device_types="cuda", schema=SCHEMA)
 def decode_threshold_op(logits: torch.Tensor, cell: int,
                         threshold: float) -> torch.Tensor:
-    """``fpc::decode_threshold``: the plain version on the CPU, the kernel
-    on CUDA (`_launch`).  Exported programs hold this op, so eager code and
-    an exported program reach the kernel through one route."""
-    return decode_threshold_plain(logits, cell, threshold)
-
-
-@decode_threshold_op.register_kernel("cuda")
-def _launch(logits: torch.Tensor, cell: int, threshold: float) -> torch.Tensor:
+    """``fpc::decode_threshold``: the kernel, for CUDA tensors alone.
+    Exported programs hold this op, so eager code and an exported program
+    reach the kernel through one route."""
     if cell != 8 or logits.dim() != 4 or logits.shape[-1] != 65:
         raise ValueError(f"the decode kernel takes cell 8 and (B, Hc, Wc, 65) "
                          f"logits, got cell {cell}, {tuple(logits.shape)}")
@@ -110,7 +105,9 @@ def _(logits: torch.Tensor, cell: int, threshold: float) -> torch.Tensor:
 def decode_threshold_cuda(
     logits: torch.Tensor, cell: int, threshold: float
 ) -> torch.Tensor:
-    """The decode kernel on a CUDA tensor, its plain version on a CPU one,
-    both through ``fpc::decode_threshold``.  The tracer's counter
+    """The decode kernel on a CUDA tensor (through ``fpc::decode_threshold``),
+    `decode_threshold_plain` on a CPU one.  The tracer's counter
     ``kernel.decode_threshold`` counts kernel runs."""
+    if not logits.is_cuda:
+        return decode_threshold_plain(logits, cell, threshold)
     return decode_threshold_op(logits, cell, threshold)

@@ -12,9 +12,9 @@ scratch instead (`nms_layout`).
 
 Plain version: the separable max-pool loop of `nms.py:41-109` on the same
 priority key; it is also the port's `ops/detection.py:grid_nms`.  The
-wrapper calls the custom op ``fpc::grid_nms``, whose CPU implementation is
-the plain version and whose CUDA implementation launches the kernel or
-raises; `torch.export` keeps the op in the graph.
+wrapper takes it for a CPU tensor; for a CUDA one it calls the custom op
+``fpc::grid_nms``, which launches the kernel or raises; `torch.export`
+keeps the op in the graph.
 """
 
 from __future__ import annotations
@@ -168,16 +168,11 @@ def plain_rounds(scores: torch.Tensor, dist_thresh: int) -> list:
 SCHEMA = "(Tensor scores, int dist_thresh) -> (Tensor, Tensor)"
 
 
-@torch.library.custom_op("fpc::grid_nms", mutates_args=(), device_types="cpu",
+@torch.library.custom_op("fpc::grid_nms", mutates_args=(), device_types="cuda",
                          schema=SCHEMA)
 def grid_nms_op(scores: torch.Tensor, dist_thresh: int):
-    """``fpc::grid_nms``: ``(kept scores, rounds (B,) int32)``, the plain
-    loop on the CPU, the kernel on CUDA (`_launch`)."""
-    return _plain_nms(scores, dist_thresh)
-
-
-@grid_nms_op.register_kernel("cuda")
-def _launch(scores: torch.Tensor, dist_thresh: int):
+    """``fpc::grid_nms``: ``(kept scores, rounds (B,) int32)`` of the
+    kernel, for CUDA tensors alone."""
     if scores.dim() != 3 or scores.dtype != torch.float32:
         raise ValueError(f"want (B, H, W) float32, got {tuple(scores.shape)} "
                          f"{scores.dtype}")
@@ -215,9 +210,11 @@ def _(scores: torch.Tensor, dist_thresh: int):
             scores.new_empty(scores.shape[:1], dtype=torch.int32))
 
 
-def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
-    """The NMS kernel on a CUDA tensor, its plain version (to convergence)
-    on a CPU one, both through ``fpc::grid_nms``.
+def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int,
+                  num_iters: int = 0) -> torch.Tensor:
+    """The NMS kernel on a CUDA tensor (through ``fpc::grid_nms``), always
+    to convergence, whatever ``num_iters`` says; `grid_nms_plain` with
+    ``num_iters`` on a CPU one.
 
     The tracer's counter ``kernel.grid_nms`` counts kernel runs.
     ``last_rounds`` is the latest kernel run's ``(B,)`` int32 device tensor
@@ -225,6 +222,8 @@ def grid_nms_cuda(scores: torch.Tensor, dist_thresh: int) -> torch.Tensor:
     after a synchronise.
     Nothing is read back on the host.
     """
+    if not scores.is_cuda:
+        return grid_nms_plain(scores, dist_thresh, num_iters)
     return grid_nms_op(scores, dist_thresh)[0]
 
 

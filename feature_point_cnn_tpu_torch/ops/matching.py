@@ -5,13 +5,16 @@ Descriptors are unit-norm, so ``L2^2 = 2 - 2 dot``: the best dot product is
 the nearest neighbour, and a distance gate ``t`` is the similarity gate
 ``sim >= 1 - t^2/2``.  The K x K similarity product is a plain
 ``torch.matmul`` (float32), as the JAX package leaves it to XLA.
+`MnnMatcher` is the serving frame's match by it (`FrameRows` against a
+keyframe).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 
 class Matches(NamedTuple):
@@ -62,3 +65,39 @@ def mnn_match(
         similarity=torch.where(ok, best_sim, 0.0),
         valid=ok,
     )
+
+
+class FrameRows(NamedTuple):
+    """A serving frame's top n score-sorted rows, which its matcher takes."""
+
+    valid: torch.Tensor      # (B, N) bool
+    packed: torch.Tensor     # (B, N, 3) float32 [y, x, score]
+    desc: torch.Tensor       # (B, N, D) float32, zero on invalid rows
+    desc16: torch.Tensor     # (B, N, D) float16 of ``desc``
+    num_valid: torch.Tensor  # (B,) int32
+
+
+class MnnMatcher(nn.Module):
+    """The serving frame's `mnn_match` (within ``max_l2_dist``) of each
+    frame's float32 rows against the keyframe's float16 descriptors, of
+    which the first ``key_num`` are valid; no outputs beyond the frame's."""
+
+    extra_outputs: Tuple[str, ...] = ()
+
+    def __init__(self, max_keypoints: int, max_l2_dist: float):
+        super().__init__()
+        self.max_l2_dist = max_l2_dist
+        # the keyframe's row slots, for key_valid = slots[:N] < key_num
+        self.register_buffer("slots", torch.arange(max_keypoints), persistent=False)
+
+    @staticmethod
+    def keyframe(n: int, d: int) -> tuple:
+        """The keyframe's tensors, ``(name, shape, dtype)`` each."""
+        return (("key_desc", (n, d), torch.float16), ("key_num", (), torch.int32))
+
+    def match_frame(self, rows: FrameRows, key: tuple, image_size) -> tuple:
+        """``(match_index (B, N) int32, -1 = none,)``."""
+        key_desc, key_num = key
+        m = mnn_match(rows.desc, rows.valid, key_desc.float(),
+                      self.slots[:key_desc.shape[0]] < key_num, max_l2_dist=self.max_l2_dist)
+        return (torch.where(m.valid, m.index, -1).to(torch.int32),)

@@ -3,10 +3,9 @@
 
 The hinge descriptor loss contracts every original cell against every
 warped cell.  On CUDA tensors it goes through the hand-written kernels of
-`ops/kernels/descriptor_loss.py` (gate ``use_cuda_desc_loss``), which keep
-every ``(B, N, N)`` tensor out of device memory in both directions; their
-plain version, the materialised computation, serves CPU tensors and the
-gate ``"off"``.
+`ops/kernels/descriptor_loss.py`, which keep every ``(B, N, N)`` tensor
+out of device memory in both directions; their plain version, the
+materialised computation, serves CPU tensors.
 
 Under a data group (`parallel/collectives.py`) each rank holds its rows of
 the global batch, and every loss returns its rank's SHARE of the global
@@ -41,11 +40,7 @@ import torch.nn.functional as F
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
 from feature_point_cnn_tpu_torch.device import constant
 from feature_point_cnn_tpu_torch.geometry.homography import warp_points
-from feature_point_cnn_tpu_torch.ops.kernels import use_kernel
-from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import (
-    hinge_descriptor_loss_cuda,
-    hinge_descriptor_loss_plain,
-)
+from feature_point_cnn_tpu_torch.ops.kernels.descriptor_loss import hinge_descriptor_loss_cuda
 from feature_point_cnn_tpu_torch.parallel import spatial
 from feature_point_cnn_tpu_torch.parallel.collectives import all_sum_, group, shard
 
@@ -157,11 +152,9 @@ def descriptor_loss(
 
     if b == 0:      # a width rank with no items: the kernels refuse B = 0
         return (d.sum() + wd.sum()) * 0.0
-    fn = (hinge_descriptor_loss_cuda
-          if use_kernel(config.use_cuda_desc_loss, d)
-          else hinge_descriptor_loss_plain)
-    raw = fn(d, wd, warped_centers, centers, mask, config.lambda_d,
-             config.positive_margin, config.negative_margin, config.cell)
+    raw = hinge_descriptor_loss_cuda(
+        d, wd, warped_centers, centers, mask, config.lambda_d,
+        config.positive_margin, config.negative_margin, config.cell)
     return raw / normalization
 
 

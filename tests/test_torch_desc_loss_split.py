@@ -205,8 +205,9 @@ def test_loss_through_split_product_matches_jax(shape, monkeypatch):
                              np.float32), (shape[0], 1))
     homog[-1, 2] += 8.0
     mask = (rng.random(shape[:3]) > 0.15).astype(np.float32)
+    # the loss's kernel entry point (on the CPU the plain product) replaced
     monkeypatch.setattr(
-        tloss, "hinge_descriptor_loss_plain",
+        tloss, "hinge_descriptor_loss_cuda",
         lambda d, wd, *rest: _hinge_from_dots(
             torch.relu(split_tf32_product(d, wd)), *rest))
     td = torch.from_numpy(desc).requires_grad_(True)

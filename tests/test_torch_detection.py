@@ -36,12 +36,11 @@ def _score_stacks(rng):
     return {"random": random, "plateaus": np.stack(_plateau_maps())}
 
 
-@pytest.mark.parametrize("nms_gate", ["on", "off"])
 @pytest.mark.parametrize("k", [16, 256])
-def test_extract_block_max_path_exact(rng, nms_gate, k):
-    """48x64 with nms_dist 4: the 4x4 block-max top-K path; "on" routes the
-    CPU tensor through the NMS kernel's plain version."""
-    cfg = SuperPointConfig(max_keypoints=k, use_cuda_nms=nms_gate)
+def test_extract_block_max_path_exact(rng, k):
+    """48x64 with nms_dist 4: the 4x4 block-max top-K path, after the NMS
+    kernel's plain version (a CPU tensor)."""
+    cfg = SuperPointConfig(max_keypoints=k)
     jcfg = JaxConfig(max_keypoints=k, use_pallas_nms="off")
     for name, scores in _score_stacks(rng).items():
         got = D.extract_keypoints_from_scores(torch.from_numpy(scores), cfg)

@@ -4,20 +4,21 @@ the CPU.
 A tiny configuration (48x64, K = 32, top-N 16, float32) with seeded weights
 that JAX draws and `utils/weights.py` carries to the port.  For the full,
 packed and packed B = 4 ABIs, `SuperPointFrontend.native_program`'s meta
-equals JAX's ``export_pjrt`` meta key by key, and the exported
-`FrameProgram` (the `torch.export` module) gives the JAX bundle's outputs on
+equals JAX's ``export_pjrt`` meta key by key, its specs are the exported
+program's own inputs and outputs, and the exported program (`FullExport`,
+or `PackedExport` over `FrameProgram`) gives the JAX bundle's outputs on
 the same images and keyframe; the bundle runs through the XLA CPU client as
 `tests/test_export.py` runs it.  Tolerances: integer outputs equal; >= 99%
 of keypoints at the same pixel; coordinates and scores there within 1e-5
 (the convolutions sum in another order); descriptors within 1e-3 (one f16
 ulp near 1 in the packed ABI).  The u8 gray program is bit-identical to the
-f32 RGB one; with the kernel gates "on" the graph holds both ``fpc`` ops
-and gives the same outputs.  One AOTInductor compile of the packed program
-serves two tests: the loaded package against the exported module, and the
-native host built with g++ against the CPU torch (``--device cpu``)
-replaying three raw frames, whose ``exec`` lines equal Python's run of the
-package.  The op schemas and the NMS layout of the host's op library equal
-the Python ones.
+f32 RGB one; a program exported from CPU tensors holds no ``fpc`` op (the
+native host implements them for CUDA alone).  One AOTInductor compile of
+the packed program serves two tests: the loaded package against the
+exported module, and the native host built with g++ against the CPU torch
+(``--device cpu``) replaying three raw frames, whose ``exec`` lines equal
+Python's run of the package.  The op schemas and the NMS layout of the
+host's op library equal the Python ones.
 """
 
 import json
@@ -40,7 +41,8 @@ from chip_smoke import host_exec_lines, polygon_scene, replay_exec_lines, shifte
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
 from feature_point_cnn_tpu_torch.inference import native
 from feature_point_cnn_tpu_torch.inference.wrapper import (
-    KERNEL_OPS,
+    DTYPES,
+    ExtractProgram,
     SuperPointFrontend,
     graph_ops,
 )
@@ -194,22 +196,34 @@ def test_u8_gray_program_matches_f32(frontend):
         np.testing.assert_array_equal(got8[name], got32[name], err_msg=name)
 
 
-def test_gates_on_export_holds_both_ops(weights, frontend):
-    """On the CPU the gates' default ("auto") traces the plain versions; "on"
-    puts ``fpc::decode_threshold`` and ``fpc::grid_nms`` in the graph, whose
-    CPU implementations are the same plain versions."""
-    on = SuperPointFrontend(CFG.replace(use_cuda_decode="on", use_cuda_nms="on"),
-                            weights_path=str(weights[0]), device="cpu")
-    ep_on, meta = on.native_program((H, W), top_n=N)
-    ep_auto, _ = frontend.native_program((H, W), top_n=N)
-    assert KERNEL_OPS <= graph_ops(ep_on)
-    assert not KERNEL_OPS & graph_ops(ep_auto)
-    key_img, frames = _images(1)
-    key = _port_run(ep_auto, meta, [key_img] + _zero_key(meta))
-    args = [frames, key["desc"], key["num_valid"]]
-    got, want = _port_run(ep_on, meta, args), _port_run(ep_auto, meta, args)
-    for name in want:
-        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+def test_meta_specs_are_the_exported_signature(abi_pair):
+    """``meta.json``'s inputs are the exported program's user inputs, in
+    order, and its outputs the names, shapes and dtypes of what the
+    program returns on zeros of those inputs."""
+    _, ep, meta = abi_pair
+    assert [s["name"] for s in meta["inputs"]] == list(ep.graph_signature.user_inputs)
+    args = [torch.zeros(s["shape"], dtype=DTYPES[s["dtype"]]) for s in meta["inputs"]]
+    with torch.no_grad():
+        outs = ep.module()(*args)
+    assert len(outs) == len(meta["outputs"])
+    for t, spec in zip(outs, meta["outputs"]):
+        assert (list(t.shape), t.dtype) == (spec["shape"], DTYPES[spec["dtype"]]), spec["name"]
+
+
+@pytest.mark.parametrize("program", ["extract", "frame"])
+def test_cpu_export_holds_no_kernel_op(frontend, program):
+    """A program exported from CPU tensors calls the kernels' plain versions
+    (the NMS loop as a ``while_loop``) and no ``fpc`` op, which the native
+    host implements for CUDA alone."""
+    if program == "extract":
+        with torch.no_grad():
+            ep = torch.export.export(ExtractProgram(frontend.model, CFG).eval(),
+                                     (torch.zeros((1, H, W, 3)),))
+    else:
+        ep, _ = frontend.native_program((H, W), top_n=N)
+    ops = graph_ops(ep)
+    assert not [o for o in ops if o.startswith("fpc.")]
+    assert any("while_loop" in o for o in ops)
 
 
 def test_op_schemas_equal_the_op_library():

@@ -33,7 +33,11 @@ from tests.test_torch_model import released_jax_variables
 from chip_smoke import polygon_scene, shifted_pair
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
 from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
-from feature_point_cnn_tpu_torch.ops.detection import extract_keypoints
+from feature_point_cnn_tpu_torch.ops.detection import (
+    decode_prob_map,
+    extract_keypoints,
+    refine_keypoints,
+)
 from feature_point_cnn_tpu_torch.utils.weights import released_path
 
 H, W = 72, 88
@@ -150,17 +154,22 @@ def test_frontend_without_device_and_gpu_raises(monkeypatch):
 
 
 def test_decode_gate_on_cpu_matches_prob_path():
-    """``use_cuda_decode="on"`` routes a CPU tensor through the decode
-    kernel's plain version: the same keypoints as the prob-map path."""
+    """On the CPU `extract` decodes through the decode kernel's plain
+    version (the thresholded map, then NMS on it): the same keypoints as
+    the prob-map path, `decode_prob_map` then `extract_keypoints`, refined
+    on the raw map."""
     imgs = _scenes(1, seed=5)
-    kps = []
-    for gate in ("on", "off"):
-        fe = SuperPointFrontend(SuperPointConfig(
-            compute_dtype="float32", max_keypoints=64, use_cuda_decode=gate,
-            subpixel_refine=True), weights_path=released_path(), device="cpu")
-        kps.append(fe.extract(imgs)[0])
+    fe = SuperPointFrontend(SuperPointConfig(
+        compute_dtype="float32", max_keypoints=64, subpixel_refine=True),
+        weights_path=released_path(), device="cpu")
+    got = fe.extract(imgs)[0]
+    with torch.inference_mode():
+        logits, _ = fe.model.features(torch.from_numpy(imgs).float())
+        prob = decode_prob_map(logits, fe.config.cell)
+        want = refine_keypoints(prob, extract_keypoints(prob, fe.config))
+    assert int(got.valid.sum()) > 0
     for f in ("y", "x", "score", "valid"):
-        assert torch.equal(getattr(kps[0], f), getattr(kps[1], f)), f
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_port_imports_no_jax():

@@ -57,11 +57,10 @@ def test_config_matches_jax_defaults():
     assert {"lambda_d", "batch_size", "warmup_steps", "microbatch_steps",
             "max_points", "photometric_augment", "train_image_size"} <= shared
     assert {k: tc[k] for k in shared} == {k: jc[k] for k in shared}
-    # the kernel gates, the serving frame's detector family and matcher
-    # (SuperGlue is the port's alone), and what the port leaves out on purpose
-    assert set(tc) - set(jc) == {"use_cuda_decode", "use_cuda_nms",
-                                 "use_cuda_desc_loss", "backbone", "matcher",
-                                 "superglue"}
+    # the serving frame's detector family and matcher (SuperGlue is the
+    # port's alone), and what the port leaves out on purpose: the kernel
+    # gates (the tensor's device picks) and the TPU-only fields
+    assert set(tc) - set(jc) == {"backbone", "matcher", "superglue"}
     assert set(jc) - set(tc) == {
         "use_pallas_decode", "use_pallas_nms", "use_pallas_desc_loss",
         "stem_s2d", "grid_channels"}

@@ -24,7 +24,6 @@ from tests.test_detection import (
     _random_scores,
 )
 
-from feature_point_cnn_tpu_torch.ops.kernels import use_kernel
 from feature_point_cnn_tpu_torch.ops.kernels.decode import (
     decode_threshold_cuda,
     decode_threshold_plain,
@@ -109,8 +108,8 @@ def test_priority_key_rejects_wide_window():
 
 
 def test_wrappers_take_plain_version_for_cpu_tensors(rng):
-    """On a CPU tensor the wrappers run the plain version and count no
-    launch; the gates switch on CUDA tensors only under "auto"."""
+    """On a CPU tensor the wrappers run the plain version, NMS with its
+    rounds, and count no launch."""
     before = profiling.counters()
     logits = torch.from_numpy((rng.standard_normal((2, 6, 8, 65)) * 4)
                               .astype(np.float32))
@@ -118,8 +117,5 @@ def test_wrappers_take_plain_version_for_cpu_tensors(rng):
                        decode_threshold_plain(logits, 8, 0.015))
     scores = torch.from_numpy(_random_scores(rng, 0.1)[None])
     assert torch.equal(grid_nms_cuda(scores, 4), grid_nms_plain(scores, 4))
+    assert torch.equal(grid_nms_cuda(scores, 4, 1), grid_nms_plain(scores, 4, 1))
     assert profiling.counted_since(before) == {}
-    assert not use_kernel("auto", scores)
-    assert use_kernel("on", scores) and not use_kernel("off", scores)
-    with pytest.raises(ValueError):
-        use_kernel("yes", scores)

@@ -134,14 +134,12 @@ def test_descriptor_hinge_loss_matches_jax_xla_path(shape, masked):
 
 
 @pytest.mark.parametrize("shape", PALLAS_SHAPES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("gate", ["auto", "on", "off"])
-def test_descriptor_hinge_loss_matches_jax_pallas_interpret(shape, gate):
-    """The port's loss (every gate: on the CPU each takes the plain version)
-    against the JAX loss through its Pallas kernel in interpret mode."""
+def test_descriptor_hinge_loss_matches_jax_pallas_interpret(shape):
+    """The port's loss (on the CPU the kernels' plain version) against the
+    JAX loss through its Pallas kernel in interpret mode."""
     desc, wdesc, homog, mask = _descriptor_case(3, *shape)
     jf, tf = _desc_fns(jloss.descriptor_loss, tloss.descriptor_loss, homog, mask,
-                       JaxConfig(use_pallas_desc_loss="on"),
-                       SuperPointConfig(use_cuda_desc_loss=gate))
+                       JaxConfig(use_pallas_desc_loss="on"), SuperPointConfig())
     _assert_close(_torch_value_and_grad(tf, desc, wdesc),
                   _jax_value_and_grad(jf, desc, wdesc),
                   rtol=2e-5, grtol=2e-4, gatol=2e-6)

@@ -45,6 +45,7 @@ from feature_point_cnn_tpu_torch.config import HomographyConfig, SuperPointConfi
 from feature_point_cnn_tpu_torch.data.datasets import read_npz_item
 from feature_point_cnn_tpu_torch.inference import wrapper as torch_wrapper
 from feature_point_cnn_tpu_torch.inference.wrapper import SuperPointFrontend
+from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
 from feature_point_cnn_tpu_torch.selflabel import adaptation as torch_adaptation
 from feature_point_cnn_tpu_torch.selflabel.adaptation import (
     _adapt_with_homographies,
@@ -138,25 +139,25 @@ def _frontends():
 @pytest.mark.parametrize("per_item", [False, True], ids=["shared", "per_item"])
 @pytest.mark.parametrize("aggregation", ["sum", "max"])
 def test_adaptation_fn_matches_jax_with_the_model(monkeypatch, aggregation, per_item):
-    """The frontend's `adaptation_fn` on given warps, with the decode
-    kernel's gate on (its plain version here, threshold 0) and off."""
+    """The frontend's `adaptation_fn` on given warps: on the CPU its
+    probability map is the decode kernel's plain version at threshold 0,
+    which is the raw decoded map itself."""
     key, hs = _patch_jax_sampler(monkeypatch, per_item)
     monkeypatch.setattr(torch_adaptation, "sample_warps", lambda *a: hs)
     jfe, tfe = _frontends()
     jcfg = JaxHomographyConfig(aggregation=aggregation, **HOMO)
     imgs = _images(seed=1)
     want = np.asarray(jfe._adapt(jfe.variables, jnp.asarray(imgs), key, homo_config=jcfg))
-    got = {}
-    for gate in ("on", "off"):
-        with torch.inference_mode():
-            got[gate] = torch_wrapper.adaptation_fn(
-                tfe.model, torch.from_numpy(imgs), None,
-                tfe.config.replace(use_cuda_decode=gate),
-                HomographyConfig(aggregation=aggregation, **HOMO)).numpy()
-        np.testing.assert_allclose(got[gate], want, atol=1e-5, rtol=1e-4, err_msg=gate)
-    # threshold 0 passes the raw map: on the CPU the kernel's plain version
-    # is the prob-map decode itself
-    np.testing.assert_array_equal(got["on"], got["off"])
+    x = torch.from_numpy(imgs)
+    with torch.inference_mode():
+        got = torch_wrapper.adaptation_fn(
+            tfe.model, x, None, tfe.config,
+            HomographyConfig(aggregation=aggregation, **HOMO)).numpy()
+        prob = torch_wrapper.adaptation_prob_fn(tfe.model, tfe.config)(x)
+        raw = decode_prob_map(tfe.model.features(x, enable_descriptor=False)[0],
+                              tfe.config.cell)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    assert torch.equal(prob, raw)
 
 
 def test_per_item_generators_make_labels_independent_of_batch_composition():

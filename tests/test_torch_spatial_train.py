@@ -205,13 +205,14 @@ def _worker(port, rank, work):
 
     assert distributed.initialize(f"localhost:{port}", RANKS, rank, device="cpu")
     inputs = torch.load(work / "inputs.pt", weights_only=False)
-    plain, calls = L.hinge_descriptor_loss_plain, []
+    # the loss's kernel entry point (on the CPU the plain version), recorded
+    entry, calls = L.hinge_descriptor_loss_cuda, []
 
-    def recording_plain(d, wd, warped_centers, *rest):
+    def recording(d, wd, warped_centers, *rest):
         calls.append(warped_centers.detach().clone())
-        return plain(d, wd, warped_centers, *rest)
+        return entry(d, wd, warped_centers, *rest)
 
-    L.hinge_descriptor_loss_plain = recording_plain
+    L.hinge_descriptor_loss_cuda = recording
 
     def save(name, **arrays):
         np.savez(work / f"{name}_{rank}.npz", **arrays)

@@ -24,11 +24,7 @@ import torch
 
 from chip_smoke import shifted_pair, transport_close
 from feature_point_cnn_tpu_torch.config import SuperGlueConfig, SuperPointConfig
-from feature_point_cnn_tpu_torch.inference.wrapper import (
-    FrameProgram,
-    SuperPointFrontend,
-    frame_signature,
-)
+from feature_point_cnn_tpu_torch.inference.wrapper import FrameProgram, SuperPointFrontend
 from feature_point_cnn_tpu_torch.models.superglue import SuperGlue, assign
 from feature_point_cnn_tpu_torch.ops import kernels
 from feature_point_cnn_tpu_torch.ops.kernels import sinkhorn
@@ -291,12 +287,6 @@ def test_eager_frame_is_reference_detect_describe_match():
     assert matched > 0
 
 
-def test_frame_signature_tells_the_matchers_apart():
-    x = torch.zeros((2, H, W, 1), dtype=torch.uint8)
-    assert frame_signature(x, 32, "superglue") != frame_signature(x, 32)
-    assert frame_signature(x, 32, "mnn") == frame_signature(x, 32)
-
-
 def test_keyframe_keypoints_go_with_the_matcher():
     fe = _frontend("cpu", "float32")
     key = _empty_key(32, "cpu")
@@ -327,7 +317,7 @@ def test_graph_replay_credits_superglue_counts():
     device = _device("cuda")
     fe = _frontend(device, "bfloat16")
     n, frames = 32, _frames(4)
-    program = FrameProgram(fe.model, fe.config, "packed", n, 2, matcher=fe.matcher).to(device)
+    program = FrameProgram(fe.model, fe.config, n, fe.matcher)
     key, want = _empty_key(n, device), []
     with torch.inference_mode():
         for x in frames:
