@@ -187,7 +187,16 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    no NaN, max|dZ| <= 1e-5 of max|Z|) on full and ragged pairs; a trace
    shows 2 * 100 + 1 launches a call; its device time beside its bounds
    (the couplings read once an iteration; two exponentials an entry an
-   iteration) and the plain loop's time.
+   iteration) and the plain loop's time;
+16. the VGG's convolution epilogue (`conv_epilogue_phase`): the kernel
+   alone at each of the VGG's twelve layer shapes at B = 32, 480x640, bit
+   for bit its plain passes, one CUDA launch a call; its device time (a
+   trace, warm) and its time after a 256 MB write beside its bytes bound
+   and the plain passes' time; then traces of the bf16 VGG forward at B =
+   32 through the kernel and through the plain passes (autograd on), for
+   the benchmark's module and a channels-last one: 12 kernel launches a
+   forward and none of the passes' kernels, the forward's device time by
+   kernel, `nchwToNhwc`'s time.
 
 The decode and NMS rows of the ``{"kernels": [...]}`` line hold, at B = 8
 and under ``b32`` at B = 32, the kernel's device time from a trace
@@ -2984,6 +2993,141 @@ def sinkhorn_phase(seed: int, card: str) -> dict:
     return row
 
 
+# the VGG's twelve convolutions at 480x640 and what follows each: (C, H, W,
+# relu, pool, float32 out)
+VGG_EPILOGUES = {
+    "encoder_conv0_a": (64, 480, 640, True, False, False),
+    "encoder_conv0_b": (64, 480, 640, True, True, False),
+    "encoder_conv1_a": (64, 240, 320, True, False, False),
+    "encoder_conv1_b": (64, 240, 320, True, True, False),
+    "encoder_conv2_a": (128, 120, 160, True, False, False),
+    "encoder_conv2_b": (128, 120, 160, True, True, False),
+    "encoder_conv3_a": (128, 60, 80, True, False, False),
+    "encoder_conv3_b": (128, 60, 80, True, False, False),
+    "detector_conv_a": (256, 60, 80, True, False, False),
+    "detector_conv_b": (65, 60, 80, False, False, True),
+    "descriptor_conv_a": (256, 60, 80, True, False, False),
+    "descriptor_conv_b": (256, 60, 80, False, False, True),
+}
+EPILOGUE_KERNELS = ("flat_kernel", "pool_kernel")
+# the passes the epilogue replaces, as a trace names their kernels
+EPILOGUE_REPLACES = ("elementwise_kernel", "max_pool_forward")
+
+
+def epilogue_bytes(b: int, c: int, h: int, w: int, pool: bool, f32: bool) -> int:
+    """Bytes one epilogue call must move: the bf16 input read once, the
+    output written once."""
+    out = b * c * (h // 2) * (w // 2) if pool else b * c * h * w
+    return 2 * b * c * h * w + (4 if f32 else 2) * out
+
+
+def conv_epilogue_phase(seed: int, card: str) -> dict:
+    """Phase 16: the VGG's convolution epilogue at B = 32, 480x640: each
+    layer's call against its plain passes and its bound, then the bf16
+    forward through the kernel and through the plain passes, traced.
+    Returns the ``kernels`` line's row."""
+    from feature_point_cnn_tpu_torch.models.vgg_superpoint import VGG_CONFIG, VGGSuperPoint
+    from feature_point_cnn_tpu_torch.ops.kernels import conv_epilogue as ep
+
+    dev, b = torch.device("cuda"), 32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    layers = {}
+    with torch.inference_mode():
+        for name, (c, h, w, relu, pool, f32) in VGG_EPILOGUES.items():
+            y = (torch.randn((b, h, w, c), generator=g, device=dev) * 2).to(
+                torch.bfloat16).permute(0, 3, 1, 2)
+            bias = torch.randn((c,), generator=g, device=dev) * 0.05
+
+            def kernel():
+                return ep.conv_epilogue(y, bias, relu, pool, f32)
+
+            def plain():
+                return ep.conv_epilogue_plain(y, bias, relu, pool, f32)
+
+            got, want = kernel(), plain()
+            view = torch.int32 if f32 else torch.int16
+            check(torch.equal(got.contiguous().view(view), want.contiguous().view(view)),
+                  f"conv_epilogue {name}: the kernel's bits are the plain passes'")
+            del got, want
+            device_ms = one_launch(kernel, "pool_kernel" if pool else "flat_kernel",
+                                   f"conv_epilogue {name}")
+            bound_ms = 1e3 * epilogue_bytes(b, c, h, w, pool, f32) / HBM_BYTES_PER_S
+            layers[name] = dict(device_ms=device_ms, cold_ms=cold_ms(kernel, flush),
+                                plain_ms=event_ms(plain, 5, warmup=1), bound_ms=bound_ms)
+            del y, bias
+    del flush
+    for name, r in layers.items():
+        print(f"  epilogue {name}: device {r['device_ms']:.4f} ms, cold {r['cold_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_ms'] / r['cold_ms']:.1%} of cold), "
+              f"plain {r['plain_ms']:.4f}")
+    sums = {k: sum(r[k] for r in layers.values())
+            for k in ("device_ms", "cold_ms", "plain_ms", "bound_ms")}
+
+    # the forward at B = 32 through the kernel and through the plain passes
+    image = torch.rand((b, H, W, 1), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    forwards = {}
+    for layout in ("contiguous", "channels_last"):
+        model = VGGSuperPoint(VGG_CONFIG, generator=torch.Generator().manual_seed(seed))
+        model = (model.to(dev, memory_format=torch.channels_last) if layout == "channels_last"
+                 else model.to(dev)).eval()
+
+        def fused():
+            with torch.inference_mode():
+                model(image)
+
+        def passes():
+            with torch.enable_grad():
+                model(image)
+
+        before = profiling.counters()
+        fused()
+        torch.cuda.synchronize()
+        counted = profiling.counted_since(before)
+        check(counted == {"kernel.conv_epilogue": 12},
+              f"VGG forward ({layout}): 12 epilogue calls, got {counted}")
+        for route, fn in (("kernel", fused), ("passes", passes)):
+            ops = trace_device(fn, calls=3, named=EPILOGUE_KERNELS if route == "kernel" else ())
+            by = sorted(((n * ms, n, k) for k, (n, ms) in ops.items()), reverse=True)
+            mine = {k: n for k, (n, _) in ops.items() if any(s in k for s in EPILOGUE_KERNELS)}
+            passed = {k: n for k, (n, _) in ops.items() if any(s in k for s in EPILOGUE_REPLACES)}
+            forwards[f"{layout}.{route}"] = dict(
+                device_ms=sum(t for t, _, _ in by),
+                epilogue_ms=sum(n * ops[k][1] for k, n in mine.items()),
+                epilogue_launches=sum(mine.values()),
+                replaced_ms=sum(n * ops[k][1] for k, n in passed.items()),
+                nchw_to_nhwc_ms=sum(t for t, _, k in by if "nchwToNhwc" in k),
+                top=[(k[:90], n, t) for t, n, k in by[:8]])
+            if route == "kernel":
+                check(sum(mine.values()) == 12 and not any(
+                          "max_pool_forward" in k for k in passed),
+                      f"VGG forward ({layout}) through the kernel: 12 launches and no "
+                      f"max-pool ({mine}, {passed})")
+        del model
+    for k, f in forwards.items():
+        print(f"VGG bf16 forward B = {b} {k}: device {f['device_ms']:.3f} ms "
+              f"({f['device_ms'] / b:.4f} ms/frame), epilogue {f['epilogue_ms']:.3f} ms in "
+              f"{f['epilogue_launches']} launches, replaced passes {f['replaced_ms']:.3f} ms, "
+              f"nchwToNhwc {f['nchw_to_nhwc_ms']:.3f} ms [{card}]")
+        for name, n, t in f["top"]:
+            print(f"    {t:9.4f} ms x{n:<4g} {name}")
+    row = dict(
+        name="conv_epilogue", route="cuda",
+        source="feature_point_cnn_tpu_torch/csrc/conv_epilogue.cu", replaces=None,
+        launches=12, shape=[b, H, W], layers=layers, **{f"sum_{k}": v for k, v in sums.items()},
+        bound_share_cold=sums["bound_ms"] / sums["cold_ms"],
+        bound_share_forward=sums["bound_ms"] / forwards["contiguous.kernel"]["epilogue_ms"],
+        forwards=forwards)
+    print(f"kernel conv_epilogue, 12 layers at B = {b}: device {sums['device_ms']:.3f} ms "
+          f"(warm), cold {sums['cold_ms']:.3f} ms, in the forward "
+          f"{forwards['contiguous.kernel']['epilogue_ms']:.3f} ms; bound "
+          f"{sums['bound_ms']:.3f} ms ({row['bound_share_cold']:.1%} of cold, "
+          f"{row['bound_share_forward']:.1%} in the forward); plain passes "
+          f"{sums['plain_ms']:.3f} ms [{card}]")
+    return row
+
+
 def native_phase(seed: int, card: str, fe, work: Path, packed_s: float) -> dict:
     """Phase 14: the frame program exported as AOTInductor packages on the
     card and held to the eager `frame`, and the native host built and run.
@@ -3841,6 +3985,9 @@ def main(argv=None) -> int:
     check(sk.returncode == 0, f"phase 15's process exited {sk.returncode}: {sk.stderr[-3000:]}")
     rows.append(json.loads(sk.stdout.strip().splitlines()[-1]))
     print(f"[phase 15 done at {time.perf_counter() - t_start:.1f} s]")
+    # ---- 16. the VGG's convolution epilogue -------------------------------
+    rows.append(conv_epilogue_phase(args.seed, card))
+    print(f"[phase 16 done at {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,13 @@ that block of all three outputs, as the ResNet model does: the 3x3
 convolutions exchange a column with the neighbouring ranks, and the 2x2
 pools, the 1x1 heads, the normalisation and the decode are local to a
 column.
+
+On the card each convolution's bias, ReLU and pool are one pass of a
+hand-written kernel (`ops/kernels/conv_epilogue.py`) over the convolution's
+channels-last bf16 output, computed without bias, bit for bit the three
+PyTorch passes it replaces.  `_fused` says where: a bf16 CUDA input with no
+gradient recorded, outside a width group and an export.  Elsewhere each
+convolution adds its own bias and the passes follow it.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from feature_point_cnn_tpu_torch.config import SuperPointConfig
@@ -31,6 +39,7 @@ from feature_point_cnn_tpu_torch.device import resolve_device
 from feature_point_cnn_tpu_torch.models.blocks import Conv2d
 from feature_point_cnn_tpu_torch.models.superpoint import _DTYPES
 from feature_point_cnn_tpu_torch.ops.detection import decode_prob_map
+from feature_point_cnn_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue
 from feature_point_cnn_tpu_torch.parallel import spatial
 
 # (in, out) channel pairs of the encoder
@@ -77,22 +86,51 @@ class VGGSuperPoint(nn.Module):
         x = image.permute(0, 3, 1, 2).to(self.compute_dtype)
         last = len(ENCODER_DIMS) - 1
         for i in range(len(ENCODER_DIMS)):
-            x = torch.relu(getattr(self, f"encoder_conv{i}_a")(x))
-            x = torch.relu(getattr(self, f"encoder_conv{i}_b")(x))
-            if i != last:
-                if spatial.group() is not None:
-                    x = spatial.max_pool2d(x, 2, 2)
-                else:
-                    x = nn.functional.max_pool2d(x, 2, 2)
-        point = torch.relu(self.detector_conv_a(x))
-        logits = self.detector_conv_b(point).float().permute(0, 2, 3, 1)
+            x = self._conv(f"encoder_conv{i}_a", x)
+            x = self._conv(f"encoder_conv{i}_b", x, pool=i != last)
+        point = self._conv("detector_conv_a", x)
+        logits = self._conv("detector_conv_b", point, relu=False,
+                            out_float32=True).permute(0, 2, 3, 1)
         if not enable_descriptor:
             b, hc, wc, _ = logits.shape
             return logits, logits.new_zeros((b, hc, wc, self.config.descriptor_dim))
-        desc = torch.relu(self.descriptor_conv_a(x))
-        desc = self.descriptor_conv_b(desc).float().permute(0, 2, 3, 1)
+        desc = self._conv("descriptor_conv_a", x)
+        desc = self._conv("descriptor_conv_b", desc, relu=False,
+                          out_float32=True).permute(0, 2, 3, 1)
         norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
         return logits, desc / norm.clamp_min(1e-12)
+
+    @staticmethod
+    def _fused(x: torch.Tensor, conv: nn.Conv2d) -> bool:
+        """Whether ``conv`` on ``x`` ends in the epilogue kernel: a CUDA bf16
+        input with no gradient recorded, outside a width group and outside
+        ``torch.export``.  Training, the W-sharded forward (its pool
+        exchanges halos), exports and the CPU take the plain passes."""
+        return (x.is_cuda and x.dtype == torch.bfloat16 and spatial.group() is None
+                and not torch.compiler.is_exporting()
+                and not (torch.is_grad_enabled() and (
+                    x.requires_grad or conv.weight.requires_grad or conv.bias.requires_grad)))
+
+    def _conv(self, name: str, x: torch.Tensor, relu: bool = True, pool: bool = False,
+              out_float32: bool = False) -> torch.Tensor:
+        """The convolution ``name`` on ``x``, then its bias, ReLU (``relu``),
+        2x2 max-pool (``pool``) and a float32 result (``out_float32``).
+        Fused (`_fused`), the convolution runs without bias on channels-last
+        bf16 weights, so that cuDNN writes its output channels-last
+        whatever the module's layout, and the kernel adds the rest; else
+        the module's convolution adds its bias and the passes follow."""
+        conv = getattr(self, name)
+        if self._fused(x, conv):
+            weight = conv.weight.to(x.dtype, memory_format=torch.channels_last)
+            return conv_epilogue(conv._conv_forward(x, weight, None), conv.bias,
+                                 relu, pool, out_float32)
+        x = conv(x)
+        if relu:
+            x = torch.relu(x)
+        if pool:
+            x = (spatial.max_pool2d(x, 2, 2) if spatial.group() is not None
+                 else F.max_pool2d(x, 2, 2))
+        return x.float() if out_float32 else x
 
     def forward(self, image: torch.Tensor):
         logits, desc = self.features(image)

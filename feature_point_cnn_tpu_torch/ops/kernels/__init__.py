@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("decode_threshold", "grid_nms", "descriptor_loss", "sinkhorn")
+SOURCES = ("decode_threshold", "grid_nms", "descriptor_loss", "sinkhorn", "conv_epilogue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

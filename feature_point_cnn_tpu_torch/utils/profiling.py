@@ -46,6 +46,7 @@ COUNTERS: Dict[str, int] = dict.fromkeys((
     "kernel.desc_loss_fwd",      # descriptor-loss forward launcher calls
     "kernel.desc_loss_bwd",      # descriptor-loss backward launcher calls
     "kernel.sinkhorn",           # Sinkhorn kernel calls (`ops/kernels/sinkhorn.py`)
+    "kernel.conv_epilogue",      # VGG epilogue kernel calls (`ops/kernels/conv_epilogue.py`)
     "train.steps",               # optimizer steps the `Trainer` took
     "frame.captures",            # frame programs captured in a CUDA graph
     "frame.replays",             # `SuperPointFrontend.frame` calls served by a replay

@@ -27,13 +27,26 @@ eager steps, float32, TF32 off, deterministic cuDNN, parameters within
 rtol 2e-4 + atol 2e-5 (measured equal); the folded frontend against live
 BatchNorm, prob maps within 1e-5 and the same keypoints.  The ``fpc`` ops
 and a frame program exported on the card: the plain versions' outputs
-exactly, the eager frame's at the frontend tests' tolerances.
+exactly, the eager frame's at the frontend tests' tolerances.  The VGG's
+convolution epilogue: bit for bit its plain passes at each of the VGG's
+twelve layer shapes at B = 32, 480x640, at odd and ragged shapes and on
+NaN, infinities, signed zeros and subnormals; the VGG forward through it
+bit for bit the forward through the plain passes, for a channels-last
+module and a plain one, 12 kernel calls a forward (10 without
+descriptors).
 """
+
+import itertools
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import VGG_EPILOGUES
+from feature_point_cnn_tpu_torch.ops.kernels.conv_epilogue import (
+    conv_epilogue,
+    conv_epilogue_plain,
+)
 from feature_point_cnn_tpu_torch.ops.kernels.decode import (
     decode_threshold_cuda,
     decode_threshold_plain,
@@ -398,3 +411,106 @@ def test_fpc_ops_and_the_exported_frame_program(rng):
     np.testing.assert_allclose(got[3].cpu().numpy()[same].astype(np.float32),
                                desc[0][same].astype(np.float32), atol=1e-3)
     assert (got[2].cpu().numpy() == match[0]).mean() >= 0.99
+
+
+SPECIAL = (float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 1e30, -1e30, 2 ** -130)
+
+
+def _conv_output(b, c, h, w, seed):
+    """A channels-last bf16 'convolution output' drawn on the card, with
+    NaN, infinities, signed zeros, huge values and bf16 subnormals at
+    drawn places, and a float32 bias whose channel 1 is NaN."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nhwc = (torch.randn((b, h, w, c), generator=g, device="cuda") * 3).to(torch.bfloat16)
+    flat = nhwc.view(-1)
+    if flat.numel():
+        at = torch.randint(0, flat.numel(), (64 * len(SPECIAL),), generator=g, device="cuda")
+        flat[at] = torch.tensor(SPECIAL * 64, dtype=torch.bfloat16, device="cuda")
+    bias = torch.randn((c,), generator=g, device="cuda") * 0.5
+    if c > 1:
+        bias[1] = float("nan")
+    return nhwc.permute(0, 3, 1, 2), bias
+
+
+def _assert_same_bits(got, want, what):
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert got.is_contiguous(memory_format=torch.channels_last), what
+    view = torch.int16 if got.element_size() == 2 else torch.int32
+    same = got.contiguous().view(view) == want.contiguous().view(view)
+    assert bool(same.all()), f"{what}: {int((~same).sum())} elements differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", list(VGG_EPILOGUES))
+@torch.inference_mode()
+def test_conv_epilogue_equals_plain_at_the_vgg_shapes(rng, layer):
+    """Each of the VGG's layers at B = 32, 480x640: one kernel call, bit for
+    bit the plain passes on the same card inputs."""
+    c, h, w, relu, pool, f32 = VGG_EPILOGUES[layer]
+    y, bias = _conv_output(32, c, h, w, seed=len(layer))
+    want = conv_epilogue_plain(y, bias, relu, pool, f32)
+    before = profiling.counters()
+    got = conv_epilogue(y, bias, relu, pool, f32)
+    torch.cuda.synchronize()
+    assert profiling.counted_since(before) == {"kernel.conv_epilogue": 1}
+    _assert_same_bits(got, want, layer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 37, 51), (2, 16, 5, 7), (1, 8, 2, 3),
+                                   (2, 65, 9, 11), (1, 5, 3, 3), (0, 16, 4, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+@torch.inference_mode()
+def test_conv_epilogue_odd_and_ragged_maps(rng, shape):
+    """Odd pooled maps (a last row and column dropped; 2x3 pools to one
+    pixel), C = 65 and 5 (vectors across pixels, a partial last vector)
+    and an empty batch, over every switch the kernel takes."""
+    c = shape[1]
+    y, bias = _conv_output(*shape, seed=sum(shape))
+    for relu, pool, f32 in itertools.product((True, False), repeat=3):
+        if pool and c % 8:
+            continue
+        want = conv_epilogue_plain(y, bias, relu, pool, f32)
+        _assert_same_bits(conv_epilogue(y, bias, relu, pool, f32), want,
+                          f"{shape} relu={relu} pool={pool} f32={f32}")
+
+
+def _vgg(layout: str):
+    from feature_point_cnn_tpu_torch.models.vgg_superpoint import VGG_CONFIG, VGGSuperPoint
+
+    model = VGGSuperPoint(VGG_CONFIG, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():      # nonzero biases, so that the bias add shows
+        g = torch.Generator().manual_seed(1)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.bias.normal_(0.0, 0.1, generator=g)
+    if layout == "channels_last":     # as the frontend moves it
+        return model.to("cuda", memory_format=torch.channels_last).eval()
+    return model.to("cuda").eval()     # as the benchmark's driver moves it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_vgg_forward_through_the_epilogue_equals_the_plain_passes(rng, layout):
+    """The bf16 VGG at 480x640: under inference mode 12 kernel calls a
+    forward (10 without descriptors); with autograd on the plain passes and
+    no kernel call; the three outputs bit for bit the same."""
+    model = _vgg(layout)
+    image = torch.rand((8, 480, 640, 1), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.inference_mode():
+        before = profiling.counters()
+        fused = model(image)
+        torch.cuda.synchronize()
+        assert profiling.counted_since(before) == {"kernel.conv_epilogue": 12}
+        before = profiling.counters()
+        logits_only = model.features(image, enable_descriptor=False)
+        torch.cuda.synchronize()
+        assert profiling.counted_since(before) == {"kernel.conv_epilogue": 10}
+    before = profiling.counters()
+    plain = model(image)
+    torch.cuda.synchronize()
+    assert profiling.counted_since(before) == {}
+    for name, f, p in zip(("prob", "desc", "logits"), fused, plain):
+        assert torch.equal(f, p.detach()), name
+    assert torch.equal(logits_only[0], fused[2])

@@ -16,7 +16,10 @@ card, checked on the CPU against the sources' text.
   card only as a failed launch);
 - the Sinkhorn wrapper's band layout follows `csrc/sinkhorn.cu`: columns a
   thread and rows a band for every M, the registers a thread holds, and
-  the dynamic shared memory at the band height for N, M up to 2048.
+  the dynamic shared memory at the band height for N, M up to 2048;
+- the convolution epilogue's wrapper follows `csrc/conv_epilogue.cu`: its
+  vector width and channel limit, the bias's shared memory within what a
+  launch may take unasked, one launch a call and no host round trip.
 """
 
 import ctypes
@@ -26,10 +29,17 @@ from pathlib import Path
 import pytest
 
 from feature_point_cnn_tpu_torch.ops.kernels import CSRC, SOURCES
-from feature_point_cnn_tpu_torch.ops.kernels import decode, descriptor_loss, nms, sinkhorn
+from feature_point_cnn_tpu_torch.ops.kernels import (
+    conv_epilogue,
+    decode,
+    descriptor_loss,
+    nms,
+    sinkhorn,
+)
 
 WRAPPERS = {"decode_threshold": decode, "grid_nms": nms,
-            "descriptor_loss": descriptor_loss, "sinkhorn": sinkhorn}
+            "descriptor_loss": descriptor_loss, "sinkhorn": sinkhorn,
+            "conv_epilogue": conv_epilogue}
 PROTOTYPE = re.compile(r'extern\s+"C"\s+\w+\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
 
 
@@ -242,6 +252,23 @@ def test_sinkhorn_source_has_no_host_round_trip():
     synchronise, no copy, no allocation (the wrapper's scratch lives in a
     captured graph's pool)."""
     text = (CSRC / "sinkhorn.cu").read_text()
+    for call in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+                 "cudaMalloc"):
+        assert call not in text, call
+    assert text.count("<<<") == 3
+
+
+def test_conv_epilogue_wrapper_follows_the_source():
+    """The wrapper's vector width and channel limit are the source's; the
+    bias's shared memory (4 B a channel) stays under the 48 KB a launch may
+    take without the opt-in attribute for every C the wrapper passes; the
+    launcher queues one launch a call, allocates and synchronises nothing."""
+    text = (CSRC / "conv_epilogue.cu").read_text()
+    assert conv_epilogue._VEC == _constant(text, "kVec")
+    assert conv_epilogue.MAX_CHANNELS == _constant(text, "kMaxChannels")
+    assert 4 * conv_epilogue.MAX_CHANNELS <= 48 * 1024
+    assert "const size_t smem = sizeof(float) * static_cast<size_t>(c);" in text
+    assert "vectors > 0x7fffffffLL" in text and conv_epilogue._MAX_VECTORS == 0x7fffffff
     for call in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
                  "cudaMalloc"):
         assert call not in text, call

@@ -313,7 +313,7 @@ def test_vgg_extract_and_run():
 def test_graph_replay_credits_superglue_counts():
     """On the card a SuperGlue frame is one graph replay a call, bit for bit
     the eager program, and each replay credits its pairs and their
-    Sinkhorn iterations."""
+    Sinkhorn iterations and the VGG's twelve epilogue calls."""
     device = _device("cuda")
     fe = _frontend(device, "bfloat16")
     n, frames = 32, _frames(4)
@@ -338,6 +338,7 @@ def test_graph_replay_credits_superglue_counts():
     assert gained["superglue.pairs"] == 2 * len(frames)
     assert gained["superglue.sinkhorn_iters"] == 2 * len(frames) * iters
     assert gained["kernel.sinkhorn"] == len(frames)
+    assert gained["kernel.conv_epilogue"] == 12 * len(frames)   # the VGG's twelve convs
 
 
 # (B, N, M, valid rows, valid columns): ragged sides, N != M, 0, 1, ragged and
